@@ -1,0 +1,110 @@
+"""Synthetic interaction segments (port of oakink2_tamf_tpu/data/synthetic.py
+`synthetic_batch` and launch/common.py `SyntheticSegments`), in numpy.
+
+The same numpy calls as the JAX package, so the same seed gives the same
+arrays. Shapes follow the static batch contract: pose_repr [bs, L, 99] with
+valid rot6d blocks, mask [bs, L], zero-padding past each true length,
+obj_traj [bs, nobj, L, 9], spatially sorted obj_points [bs, nobj, P, 3].
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+
+from ..utils.pc_util import spatial_sort_indices
+
+
+def _random_rot6d(rng, shape):
+    a = rng.normal(size=shape + (3, 3))
+    q, r = np.linalg.qr(a)
+    d = np.sign(np.diagonal(r, axis1=-2, axis2=-1))
+    q = q * d[..., None, :]
+    det = np.linalg.det(q)
+    q[..., :, 0] *= det[..., None]
+    return q[..., :2, :].reshape(shape + (6,)).astype(np.float32)
+
+
+def synthetic_batch(
+    rng: np.random.Generator,
+    batch_size: int = 4,
+    seq_len: int = 160,
+    max_nobj: int = 2,
+    n_obj_points: int = 512,
+    min_len: int = 16,
+) -> dict[str, np.ndarray]:
+    bs, L = batch_size, seq_len
+    tsl = rng.normal(scale=0.2, size=(bs, L, 3)).astype(np.float32)
+    rot6d = _random_rot6d(rng, (bs, L, 16)).reshape(bs, L, 96)
+    pose_repr = np.concatenate([tsl, rot6d], axis=-1)
+
+    lens = rng.integers(min_len, L + 1, size=(bs,))
+    mask = np.zeros((bs, L), np.float32)
+    for i, n in enumerate(lens):
+        mask[i, :n] = 1.0
+    pose_repr = pose_repr * mask[:, :, None]  # zero-pad past the true length
+
+    n_real = rng.integers(1, max_nobj + 1, size=(bs,))
+    obj_mask = np.zeros((bs, max_nobj), bool)
+    for i, n in enumerate(n_real):
+        obj_mask[i, :n] = True
+
+    obj_tsl = rng.normal(scale=0.3, size=(bs, max_nobj, L, 3)).astype(np.float32)
+    obj_rot6d = _random_rot6d(rng, (bs, max_nobj, L))
+    obj_traj = np.concatenate([obj_tsl, obj_rot6d], axis=-1) * mask[:, None, :, None]
+
+    obj_points = rng.normal(scale=0.1, size=(bs, max_nobj, n_obj_points, 3)).astype(np.float32)
+    for i in range(bs):
+        for j in range(max_nobj):
+            obj_points[i, j] = obj_points[i, j][spatial_sort_indices(obj_points[i, j])]
+
+    return {
+        "pose_repr": pose_repr,
+        "mask": mask,
+        "len": lens.astype(np.int32),
+        "shape": rng.normal(scale=0.5, size=(bs, L, 10)).astype(np.float32) * mask[:, :, None],
+        "hand_side": rng.integers(0, 2, size=(bs,)).astype(np.int32),
+        "text_emb": rng.normal(size=(bs, 512)).astype(np.float32),
+        "obj_traj": obj_traj,
+        "obj_embedding": rng.normal(size=(bs, max_nobj, 768)).astype(np.float32),
+        "obj_mask": obj_mask,
+        "obj_points": obj_points,
+        "action_label_id": rng.integers(0, 70, size=(bs,)).astype(np.int32),
+    }
+
+
+class SyntheticSegments:
+    """Fixed per-index segments in the per-sample dict contract (the keys the
+    serving path reads), for runs without the OakInk2 data."""
+
+    def __init__(self, size: int, seq_len: int = 160, max_nobj: int = 2,
+                 n_obj_points: int = 512, seed: int = 0):
+        self.size = size
+        self.seq_len = seq_len
+        self.max_nobj = max_nobj
+        self.n_obj_points = n_obj_points
+        self.seed = seed
+
+    def __len__(self):
+        return self.size
+
+    def __getitem__(self, index: int) -> dict[str, Any]:
+        rng = np.random.default_rng(self.seed * 100003 + index)
+        b = synthetic_batch(
+            rng, batch_size=1, seq_len=self.seq_len, max_nobj=self.max_nobj,
+            n_obj_points=self.n_obj_points,
+        )
+        n_real = int(b["obj_mask"][0].sum())
+        return {
+            "len": int(b["len"][0]),
+            "mask": b["mask"][0],
+            "pose_repr": b["pose_repr"][0],
+            "shape": b["shape"][0],
+            "hand_side": "rh" if index % 2 == 0 else "lh",
+            "text": f"synthetic task {index % 7}",
+            "obj_num": n_real,
+            "obj_traj": b["obj_traj"][0][:n_real],
+            "obj_embedding": b["obj_embedding"][0][:n_real],
+            "obj_pointcloud": b["obj_points"][0][:n_real],
+        }
