@@ -8,6 +8,11 @@ The reverse chain (`p_sample_loop`) is a Python loop on the device. It takes
 an optional explicit initial noise and per-step noise so a test can feed it
 the JAX chain's noise. DDIM, PLMS and the parallel sampler are not ported yet.
 
+Training (`training_losses`): START_X prediction, MSE loss, FIXED_SMALL
+variance, the configuration of every TaMF config; the KL / learned-variance
+branches of the JAX package are not ported. It takes an explicit `noise=`
+so a test can feed both sides the same noise.
+
 Layout: x is [bs, seqlen, C] as in the JAX package.
 """
 
@@ -172,6 +177,12 @@ def _extract(arr: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
     return out.reshape(out.shape + (1,) * (ndim - 1))
 
 
+def model_timesteps(sched: DiffusionSchedule, t: torch.Tensor) -> torch.Tensor:
+    """The timestep the model sees: the respacing map (integer, it indexes
+    the model's sinusoidal table)."""
+    return sched.timestep_map[t]
+
+
 def q_sample(sched: DiffusionSchedule, x_start, t, noise):
     """Sample q(x_t | x_0)."""
     return (
@@ -257,3 +268,40 @@ def p_sample_loop(
             z = step_noise[i].to(device)
         img = p_sample(model_fn, sched, img, t, z)["sample"]
     return img
+
+
+# ---------------------------------------------------------------------------
+# Training loss (gd.py masked_l2 and training_losses)
+# ---------------------------------------------------------------------------
+
+
+def masked_l2(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Per-sample masked MSE over [bs, seqlen, C] with mask [bs, seqlen]:
+    sum((a-b)^2 * mask) / (sum(mask) * C)."""
+    m = mask[..., None].to(a.dtype)
+    dims = tuple(range(1, a.ndim))
+    loss = torch.sum((a - b) ** 2 * m, dim=dims)
+    non_zero = torch.sum(m, dim=dims) * a.shape[-1]
+    return loss / torch.clamp_min(non_zero, 1e-8)
+
+
+def training_losses(
+    model_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+    sched: DiffusionSchedule,
+    x_start: torch.Tensor,
+    t: torch.Tensor,
+    mask: torch.Tensor,
+    *,
+    noise: torch.Tensor | None = None,
+    generator: torch.Generator | None = None,
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Masked-MSE diffusion loss for START_X prediction: returns (per-sample
+    loss [bs], aux with x_t, model_output and target). `noise` is the unit
+    noise of q_sample, drawn from `generator` when not given."""
+    if noise is None:
+        noise = torch.randn(x_start.shape, generator=generator, device=x_start.device,
+                            dtype=x_start.dtype)
+    x_t = q_sample(sched, x_start, t, noise)
+    model_output = model_fn(x_t, model_timesteps(sched, t))
+    mse = masked_l2(x_start, model_output, mask)
+    return mse, {"x_t": x_t, "model_output": model_output, "target": x_start}

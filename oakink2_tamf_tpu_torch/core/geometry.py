@@ -1,13 +1,16 @@
-"""Geometry: vertex normals and hand->object nearest distances (port of
-oakink2_tamf_tpu/core/geometry.py, the parts the serving path runs).
+"""Geometry: vertex normals, hand->object nearest distances and signed
+hand/object distances (port of oakink2_tamf_tpu/core/geometry.py, the parts
+the serving path and G training run).
 
 `point2point_h2o` routes like the JAX package does on the TPU: the
 bounds-culled kernel (ops/chamfer_cull.py) when P2 >= CULL_MIN_P2 and
-grad_y=False, the all-pairs kernel (ops/chamfer_nn.py) otherwise. CUDA
-tensors go to the kernels, CPU tensors to their plain versions.
+grad_y=False, the all-pairs kernel (ops/chamfer_nn.py) otherwise. It is
+forward only: those kernels have no backward yet (the R-training slice adds
+it), so a call that would need a gradient raises.
 
-Forward only: the kernels have no backward yet (the training slices add
-them), so a call that would need a gradient raises.
+`point2point_signed` is the signed bidirectional pair (ops/chamfer_signed.py)
+with its backward kernel. CUDA tensors go to the kernels, CPU tensors to
+their plain versions.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops import chamfer_cull, chamfer_nn
+from ..ops import chamfer_cull, chamfer_nn, chamfer_signed
 
 CULL_MIN_P2 = 4096
 
@@ -42,7 +45,10 @@ def _vn_dense_ops(faces: np.ndarray, num_v: int, device: torch.device):
             np.add.at(a, (faces[:, i], r), 1.0)
         if len(_VN_OPS_CACHE) >= 8:
             _VN_OPS_CACHE.pop(next(iter(_VN_OPS_CACHE)))
-        ops = _VN_OPS_CACHE[key] = tuple(torch.from_numpy(m).to(device) for m in (d1, d2, a))
+        # normal tensors even when first built under inference_mode (serving):
+        # a training step that reuses the cached operators saves them for backward
+        with torch.inference_mode(False):
+            ops = _VN_OPS_CACHE[key] = tuple(torch.from_numpy(m).to(device) for m in (d1, d2, a))
     return ops
 
 
@@ -99,3 +105,30 @@ def point2point_h2o(
     else:
         d2, _ = chamfer_nn.h2o_nn(x, y, y_valid, y_group)
     return torch.sqrt(torch.clamp_min(d2, 0.0))
+
+
+def point2point_signed(
+    x: torch.Tensor,  # [N, P1, 3] hand verts
+    y: torch.Tensor,  # [N // y_group, P2, 3] object points
+    x_normals: torch.Tensor | None = None,  # [N, P1, 3]
+    y_valid: torch.Tensor | None = None,  # [N // y_group, P2] bool
+    *,
+    grad_y: bool = True,
+    y_group: int = 1,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Signed distances between two point clouds (the reference's
+    model/loss/chamfer_distance.py:point2point_signed).
+
+    Returns (y2x_signed [N, P2], x2y_signed [N, P1], yidx_near [N, P2]):
+    y2x is each object point's distance to its nearest hand vert, signed
+    by that vert's normal (unsigned without normals, 0 at invalid points);
+    x2y is each hand vert's distance to its nearest object point;
+    yidx_near is the index of the hand vert nearest to each object point.
+
+    grad_y=False keeps y off the differentiation path (every TaMF loss
+    differentiates only the hand verts). y_group > 1 is the shared-cloud
+    mode (requires grad_y=False): frame f searches cloud f // y_group. The
+    JAX package's `y_normals` and `cluster` backend are not ported."""
+    return chamfer_signed.signed_chamfer(
+        x, y, x_normals, y_valid, grad_y=grad_y, y_group=y_group
+    )

@@ -4,6 +4,10 @@ oakink2_tamf_tpu/models/mdm_g.py).
 Tokens: [timestep, text, hand_side, hand_shape, obj_embed] + L motion frames,
 sinusoidal PE over the whole sequence, post-LN encoder, output head on the
 trailing L positions. The frozen CLIP text features enter as `text_emb`.
+
+Train mode (`model.train()`) applies dropout (nn.Dropout, torch's global
+generator) and the classifier-free text-masking hook `cond_mask_prob`, which
+is 0 in every TaMF config.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ class MDMConfig:
     dropout: float = 0.1
     activation: str = "gelu"
     clip_dim: int = 512
+    cond_mask_prob: float = 0.0
 
     @classmethod
     def arch_mdm(cls) -> "MDMConfig":
@@ -72,13 +77,26 @@ class InteractionSegmentMDM(nn.Module):
         )
         self.output_process = OutputProcess(d, cfg.input_dim)
 
-    def forward(self, x: torch.Tensor, timesteps: torch.Tensor, cond: dict[str, Any]) -> torch.Tensor:
+    def _mask_cond(self, cond_vec: torch.Tensor, force_mask: bool) -> torch.Tensor:
+        """Classifier-free conditioning mask (mdm.py:99-109): zero the text
+        features when forced, or per sample with cond_mask_prob in train mode."""
+        if force_mask:
+            return torch.zeros_like(cond_vec)
+        p = self.cfg.cond_mask_prob
+        if self.training and p > 0.0:
+            keep = torch.bernoulli(torch.full((cond_vec.shape[0], 1), 1.0 - p, device=cond_vec.device))
+            return cond_vec * keep.to(cond_vec.dtype)
+        return cond_vec
+
+    def forward(self, x: torch.Tensor, timesteps: torch.Tensor, cond: dict[str, Any],
+                force_mask: bool = False) -> torch.Tensor:
         """x [bs, L, 99] noisy pose_repr, timesteps [bs] int -> [bs, L, 99]."""
         d = self.cfg.latent_dim
+        text = self._mask_cond(cond["text_emb"].to(torch.float32), force_mask)
         emb = torch.stack(
             [
                 self.embed_timestep(timesteps),
-                self.embed_text(cond["text_emb"].to(torch.float32)),
+                self.embed_text(text),
                 hand_side_embed(cond["hand_side"], d),
                 self.hand_shape_process(cond["shape"]),
                 self.obj_embed_process(cond["obj_embedding"], cond["obj_mask"]),

@@ -100,8 +100,8 @@ class Kernel:
         fn = getattr(lib, self.symbol)
         fn.argtypes = self.argtypes
         fn.restype = ctypes.c_int
-        lib.h2o_error_string.argtypes = [ctypes.c_int]
-        lib.h2o_error_string.restype = ctypes.c_char_p
+        lib.kernel_error_string.argtypes = [ctypes.c_int]
+        lib.kernel_error_string.restype = ctypes.c_char_p
 
     def launch(self, *args) -> None:
         """Call the C launch function, count the launch, raise on a CUDA error."""
@@ -109,7 +109,7 @@ class Kernel:
         rc = getattr(lib, self.symbol)(*args)
         self.launches += 1
         if rc != 0:
-            msg = lib.h2o_error_string(rc).decode()
+            msg = lib.kernel_error_string(rc).decode()
             raise RuntimeError(f"{self.name} kernel launch failed: cuda error {rc} ({msg})")
 
 

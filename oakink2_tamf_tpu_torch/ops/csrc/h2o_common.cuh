@@ -1,12 +1,13 @@
-// Shared pieces of the two hand->object nearest-neighbour kernels
-// (h2o_nn.cu, h2o_cull.cu).
+// Shared pieces of the kernels that search a hand row's nearest object
+// point (h2o_nn.cu, h2o_cull.cu, nn_signed.cu, dist_loss.cu).
 //
-// Both kernels compute each (x, y) pair's squared distance with the one
+// Every kernel computes each (x, y) pair's squared distance with the one
 // function below, so their minima are bit-identical: the culled kernel only
-// skips pairs that provably cannot hold the minimum.
+// skips pairs that provably cannot hold the minimum, and the signed kernels'
+// object->hand direction sees the same value for a pair as the h2o one.
 #pragma once
 
-#include <cuda_runtime.h>
+#include "launch_common.cuh"
 
 // x rows per block: one 128-row region of the (template-permuted) hand, the
 // region size of the cull mask (ops/chamfer_cull.REGION_ROWS).
@@ -47,6 +48,53 @@ __device__ __forceinline__ void h2o_stage_y(
     for (int k = threadIdx.x; k < n; k += blockDim.x) ys[k] = yg[j0 + k];
 }
 
-extern "C" const char* h2o_error_string(int e) {
-    return cudaGetErrorString(static_cast<cudaError_t>(e));
+// The all-pairs row search of one (frame, 128-row region) block: the first
+// minimum over the frame's whole cloud y[f / y_group] of this thread's row.
+// The cloud streams through shared memory in 512-point stages; every
+// thread reads each staged point as a broadcast. Dead rows (live == false)
+// take part in the barriers and compute nothing; they return BIG, 0.
+__device__ __forceinline__ void h2o_row_scan(
+    float4* ys, const float4* __restrict__ yg, int P2, bool live,
+    float x0, float x1, float x2, float& best, int& best_j) {
+    best = H2O_BIG;
+    best_j = 0;
+    for (int j0 = 0; j0 < P2; j0 += H2O_Y_STAGE) {
+        const int n = min(H2O_Y_STAGE, P2 - j0);
+        h2o_stage_y(ys, yg, j0, n);
+        __syncthreads();
+        if (live) {
+#pragma unroll 8
+            for (int k = 0; k < n; ++k) {
+                const float d = h2o_pair_d2(x0, x1, x2, ys[k]);
+                if (d < best) {  // strict: ascending j, the first minimum wins
+                    best = d;
+                    best_j = j0 + k;
+                }
+            }
+        }
+        __syncthreads();
+    }
+}
+
+// The body of the all-pairs h2o kernel (h2o_nn.cu; the h2o half of
+// nn_signed.cu): block = (frame, 128-row region), one row per thread.
+__device__ __forceinline__ void h2o_nn_block(
+    const float* __restrict__ x, const float4* __restrict__ y,
+    const float* __restrict__ ctr, float* __restrict__ d_out, int* __restrict__ i_out,
+    int P1, int P2, int y_group, int R) {
+    __shared__ float4 ys[H2O_Y_STAGE];
+    const long long blk = blockIdx.x;
+    const int f = (int)(blk / R);
+    const int r = (int)(blk - (long long)f * R);
+    const int g = f / y_group;
+    const int row = r * H2O_REGION_ROWS + threadIdx.x;
+    float x0, x1, x2;
+    const bool live = h2o_load_row(x, ctr, f, g, row, P1, x0, x1, x2);
+    float best;
+    int best_j;
+    h2o_row_scan(ys, y + (size_t)g * P2, P2, live, x0, x1, x2, best, best_j);
+    if (live) {
+        d_out[(size_t)f * P1 + row] = best;
+        i_out[(size_t)f * P1 + row] = best_j;
+    }
 }

@@ -23,38 +23,7 @@ h2o_nn_kernel(const float* __restrict__ x,     // [F, P1, 3]
               float* __restrict__ d_out,       // [F, P1] min squared distance
               int* __restrict__ i_out,         // [F, P1] first argmin
               int P1, int P2, int y_group, int R) {
-    __shared__ float4 ys[H2O_Y_STAGE];
-    const long long blk = blockIdx.x;
-    const int f = (int)(blk / R);
-    const int r = (int)(blk - (long long)f * R);
-    const int g = f / y_group;
-    const int row = r * H2O_REGION_ROWS + threadIdx.x;
-    float x0, x1, x2;
-    const bool live = h2o_load_row(x, ctr, f, g, row, P1, x0, x1, x2);
-    const float4* yg = y + (size_t)g * P2;
-
-    float best = H2O_BIG;
-    int best_j = 0;
-    for (int j0 = 0; j0 < P2; j0 += H2O_Y_STAGE) {
-        const int n = min(H2O_Y_STAGE, P2 - j0);
-        h2o_stage_y(ys, yg, j0, n);
-        __syncthreads();
-        if (live) {
-#pragma unroll 8
-            for (int k = 0; k < n; ++k) {
-                const float d = h2o_pair_d2(x0, x1, x2, ys[k]);
-                if (d < best) {  // strict: ascending j, the first minimum wins
-                    best = d;
-                    best_j = j0 + k;
-                }
-            }
-        }
-        __syncthreads();
-    }
-    if (live) {
-        d_out[(size_t)f * P1 + row] = best;
-        i_out[(size_t)f * P1 + row] = best_j;
-    }
+    h2o_nn_block(x, y, ctr, d_out, i_out, P1, P2, y_group, R);
 }
 
 extern "C" int h2o_nn_launch(const float* x, const float4* y, const float* ctr,

@@ -17,7 +17,11 @@ import oakink2_tamf_tpu_torch
 from oakink2_tamf_tpu_torch import _device
 from oakink2_tamf_tpu_torch.ops import _build
 from oakink2_tamf_tpu_torch.ops import chamfer_cull as CU
+from oakink2_tamf_tpu_torch.ops import chamfer_loss as CL
 from oakink2_tamf_tpu_torch.ops import chamfer_nn as NN
+from oakink2_tamf_tpu_torch.ops import chamfer_signed as CS
+
+KERNELS = (NN.KERNEL, CU.KERNEL, CS.KERNEL, CS.BWD_KERNEL, CL.KERNEL)
 
 PKG = pathlib.Path(oakink2_tamf_tpu_torch.__file__).parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "oakink2_tamf_tpu")
@@ -103,7 +107,7 @@ def test_cpu_wrappers_run_the_plain_versions():
 
 
 def test_kernel_sources_ship_and_build_lazily():
-    for k in (NN.KERNEL, CU.KERNEL):
+    for k in KERNELS:
         src, so = k._paths()
         assert os.path.isfile(src), src
         assert so.startswith(_build.BUILD_DIR) and so.endswith(".so")
@@ -134,3 +138,71 @@ def test_cuda_kernels_match_plain_versions():
     assert torch.equal(dc, CU.plain(*ops, mask, L, 2048))
     ok = (xv & yv.any(1).repeat_interleave(L))[:, None].expand_as(d)
     assert torch.equal(dc[ok], d[ok])
+
+
+def test_cpu_wrappers_of_the_training_kernels_launch_nothing():
+    """The signed pair, its backward and the fused loss on CPU tensors run
+    their plain versions: values come back, the counts stay put."""
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.normal(size=(4, 40, 3)).astype(np.float32) * 0.05).requires_grad_(True)
+    n = torch.nn.functional.normalize(torch.from_numpy(rng.normal(size=(4, 40, 3)).astype(np.float32)), dim=-1)
+    y = torch.from_numpy(rng.normal(size=(2, 70, 3)).astype(np.float32) * 0.05)
+    before = [k.launches for k in KERNELS]
+    y2x, x2y, _ = CS.signed_chamfer(x, y, n, grad_y=False, y_group=2)
+    (y2x.sum() + x2y.sum()).backward()
+    do_f, dh_f = CL.chamfer_dist_loss(x, n, y, y2x.detach(), x2y.detach(), torch.ones(40), y_group=2)
+    (do_f.sum() + dh_f.sum()).backward()
+    assert [k.launches for k in KERNELS] == before
+    assert torch.isfinite(x.grad).all()
+
+
+def _assert_scatter_close(a, b):
+    d = (a - b).flatten(1).norm(dim=1)
+    assert bool((d <= 1e-5 * b.flatten(1).norm(dim=1) + 1e-6).all()), d.max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_training_kernels_match_plain_versions():
+    """nn_signed, nn_signed_bwd and dist_loss on the card against their
+    plain versions: the forward and the loss rows repeat the per-pair
+    rounding (equal values and argmins); the scatters sum the same terms in
+    another order, held per frame: ||a_f - b_f|| <= 1e-5 ||b_f|| + 1e-6."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    _device.set_fp32_precision()
+    rng = np.random.default_rng(3)
+    G, L, P2 = 3, 8, 3000
+    x = torch.from_numpy(rng.normal(size=(G * L, 778, 3)).astype(np.float32) * 0.05).cuda()
+    n = torch.nn.functional.normalize(torch.from_numpy(rng.normal(size=(G * L, 778, 3)).astype(np.float32)), dim=-1).cuda()
+    y = torch.from_numpy(rng.normal(size=(G, P2, 3)).astype(np.float32) * 0.1).cuda()
+    yv = torch.ones(G, P2, dtype=torch.bool, device="cuda")
+    yv[1, 1000:] = False
+    yv[2] = False
+    ops = CS.prepare(x, y, n, yv, L)
+    got = CS.launch(*ops, L)
+    want = CS.plain(*ops, L)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    h2o_i, o2h_i = got[1], got[3]
+    xr = torch.randn(G * L, 778, device="cuda")
+    yc = torch.randn(G * L, P2, device="cuda") * yv.repeat_interleave(L, 0)
+    for grad_y, gy_group in ((False, L), (True, 1)):
+        yy = y if gy_group == L else y.repeat_interleave(L, 0)
+        gx, gy = CS.backward_launch(x, yy, h2o_i, o2h_i, xr, yc, grad_y, gy_group)
+        px, py = CS.backward_plain(x, yy, h2o_i, o2h_i, xr, yc, grad_y, gy_group)
+        _assert_scatter_close(gx, px)
+        if grad_y:
+            _assert_scatter_close(gy, py)
+    og = torch.randn(G * L, P2, device="cuda") * 0.01
+    hg = torch.randn(G * L, 778, device="cuda") * 0.01
+    xv = torch.ones(G * L, dtype=torch.bool, device="cuda")
+    xv[::5] = False
+    lops = CL.prepare(x, n, y, og, hg, torch.rand(778, device="cuda"), yv, xv, L)
+    got = CL.launch(*lops, L)
+    want = CL.plain(*lops, L)
+    # v and dh: the same float32 operations after the shared pairs (a sqrt
+    # may differ by one ulp between the kernel and PyTorch's)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-6, atol=1e-7)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-6, atol=1e-7)
+    _assert_scatter_close(got[2], want[2])
+    torch.testing.assert_close(got[3], want[3], rtol=1e-6, atol=1e-7)
