@@ -285,7 +285,7 @@ def main_path(n_obj_points: int, respacing: str, kernel, label: str):
         from oakink2_tamf_tpu_torch.models.refine_r import refine_forward
 
         b2 = dict(batch, sample_pose_repr=batch["pose_repr"])
-        r_ms = cuda_time_ms(lambda: refine_forward(pipe.refine_net, pipe.mano_stack, b2,
+        r_ms = cuda_time_ms(lambda: refine_forward(pipe.refine_net, pipe.mano_stack, b2, with_target=False,
                                                    loss_frame_mask=batch["mask"]), reps=3)
     print(f"{label}: G forward {g_ms:.3f} ms/step, R forward with geometry {r_ms:.3f} ms", flush=True)
     del pipe
@@ -689,6 +689,486 @@ def entry_point() -> None:
     require(CS.KERNEL.launches == 4 and CL.KERNEL.launches == 4, "train_g.main did not run the kernels")
 
 
+# ---------------------------------------------------------------------------
+# R training: kernels #3-#5, train-step parity, main path, all-pairs route,
+# entry point, the grad_y route
+# ---------------------------------------------------------------------------
+
+R_ALL_PAIRS_P = 2048  # the repo default n_obj_points: the all-pairs route
+
+
+def library_min_dvec(xc, yc, groups: int = 4):
+    """#3/#4's library yardstick: torch.cdist(x, y).min(-1) over `groups`
+    clouds per call, then a gather of each row's winning point for dvec."""
+    import torch
+
+    out = []
+    for g in range(0, xc.shape[0], groups):
+        xg, yg = xc[g : g + groups], yc[g : g + groups]
+        d, j = torch.cdist(xg, yg).min(-1)
+        out.append((d, xg - torch.gather(yg, 1, j[..., None].expand(-1, -1, 3))))
+    return out
+
+
+def library_h2o_bwd(x, y, idx, xr):
+    """#5's library yardstick: a gather of y at the argmins, then index_add_
+    for the gy scatter (y_group 1)."""
+    import torch
+
+    F, P1, _ = x.shape
+    P2 = y.shape[1]
+    flat = (torch.arange(F, device=x.device)[:, None] * P2 + idx.long()).reshape(-1)
+    v = xr[..., None] * (x - y.reshape(-1, 3)[flat].reshape(F, P1, 3))
+    gy = torch.zeros((F * P2, 3), device=x.device).index_add_(0, flat, -v.reshape(-1, 3))
+    return v, gy
+
+
+def check_r_kernels() -> dict[str, dict]:
+    """#3 h2o_cull_dvec, #4 h2o_nn_dvec and #5 h2o_nn_bwd: against their
+    plain versions on 32 frames (4 clouds x 8) x 778 rows x 8192 points with
+    a ragged cloud, an all-invalid cloud and x_valid=False frames; then
+    timed at the R training shape (40960 frames = 64 x 4 slots x 160
+    against 8192 points for #3 and 2048 for #4) and #5 at 10240 x 778 x
+    2048 with y_group 1. The plain versions of #3 and #4 are timed on 1/8 of
+    the frames and scaled by 8."""
+    import torch
+
+    from oakink2_tamf_tpu_torch.ops import chamfer_cull as CU
+    from oakink2_tamf_tpu_torch.ops import chamfer_h2o_bwd as HB
+    from oakink2_tamf_tpu_torch.ops import chamfer_nn as NN
+
+    out = {}
+    tile = 2048
+    # --- correctness -----------------------------------------------------
+    L = 8
+    x, y, yv, xv, _ = kernel_inputs(TRAIN_P, G=4, L=L, seed=4)
+    ops = NN.prepare(x, y, yv, L)
+    took = yv.any(1).repeat_interleave(L)  # frames whose cloud has a valid point
+    d, dvec = NN.launch_dvec(*ops, L)
+    torch.cuda.synchronize()
+    dp, dvp = NN.plain_dvec(*ops, L)
+    # the plain version repeats the per-pair rounding: equal on live rows
+    require(torch.equal(d[took], dp[took]) and torch.equal(dvec[took], dvp[took]),
+            "h2o_nn_dvec differs from the plain version on live rows")
+    require(bool((d[~took] == NN.BIG).all() and (dvec[~took] == 0).all()),
+            "h2o_nn_dvec: rows that took no point are not (BIG, 0)")
+    require(torch.equal(d, NN.launch(*ops, L)[0]), "h2o_nn_dvec and h2o_nn minima differ")
+    err4 = max((d[took] - dp[took]).abs().max().item(), (dvec[took] - dvp[took]).abs().max().item())
+    mask = CU.cull_mask(x, y, yv, tile, L, xv)
+    dc, dvc = CU.launch_dvec(*ops, mask, L, tile)
+    torch.cuda.synchronize()
+    dcp, dvcp = CU.plain_dvec(*ops, mask, L, tile)
+    live = took & xv
+    require(torch.equal(dc[live], dcp[live]) and torch.equal(dvc[live], dvcp[live]),
+            "h2o_cull_dvec differs from the plain version on live rows")
+    require(bool((dc[~live] == CU.BIG).all() and (dvc[~live] == 0).all()),
+            "h2o_cull_dvec: culled rows are not (BIG, 0)")
+    require(torch.equal(dc[live], d[live]) and torch.equal(dvc[live], dvec[live]),
+            "h2o_cull_dvec and h2o_nn_dvec differ on live frames")
+    err3 = max((dc[live] - dcp[live]).abs().max().item(), (dvc[live] - dvcp[live]).abs().max().item())
+    print(f"h2o_nn_dvec / h2o_cull_dvec F={x.shape[0]} P1=778 P2={TRAIN_P}: equal to plain on live rows "
+          f"(max abs err {err4} / {err3}), (BIG, 0) elsewhere, equal to each other on live frames", flush=True)
+    xr = torch.randn(x.shape[:2], device="cuda")
+    xr[:, ::7] = 0.0
+    err5 = 0.0
+    for grad_y, gl in ((False, L), (True, 1)):
+        yy = y if gl == L else y.repeat_interleave(L, 0).contiguous()
+        _, idx = NN.h2o_nn(x, yy, yv if gl == L else yv.repeat_interleave(L, 0), gl)
+        gx, gy = HB.launch(x, yy, idx, xr, grad_y, gl)
+        torch.cuda.synchronize()
+        px, py = HB.plain(x, yy, idx, xr, grad_y, gl)
+        require(torch.equal(gx, px), f"h2o_nn_bwd gx (grad_y={grad_y}) differs from the plain version")
+        if grad_y:
+            # atomics sum in a run-dependent order: per-frame norm within 1e-5
+            require(scatter_close(gy, py), f"h2o_nn_bwd gy vs plain: {(gy - py).abs().max().item()}")
+            err5 = (gy - py).abs().max().item()
+    print(f"h2o_nn_bwd nogy (y_group {L}) and grad_y ({TRAIN_P} points, {TRAIN_P * 12 // 1024} KB "
+          f"accumulator): gx equal, gy within 1e-5 per frame (max abs err {err5})", flush=True)
+    del x, y, yv, xv, ops, d, dvec, dp, dvp, mask, dc, dvc, dcp, dvcp, xr, gx, gy, px, py, yy, idx
+    torch.cuda.empty_cache()
+
+    # --- timing at the R training shape --------------------------------------
+    L = TRAIN_L
+    for name, P2 in (("h2o_cull_dvec", TRAIN_P), ("h2o_nn_dvec", R_ALL_PAIRS_P)):
+        x, y, yv, xv, _ = kernel_inputs(P2, G=TRAIN_CLOUDS, L=L, seed=5)
+        F, P1, _ = x.shape
+        ops = NN.prepare(x, y, yv, L)
+        part = (F // 8, TRAIN_CLOUDS // 8)  # the plain version's 1/8 of the frames
+        if name == "h2o_cull_dvec":
+            mask = CU.cull_mask(x, y, yv, tile, L, xv)
+            R, T = mask.shape[1:]
+            rows = torch.tensor([min(128, P1 - 128 * r) for r in range(R)], device=mask.device)
+            cols = torch.tensor([min(tile, P2 - tile * t) for t in range(T)], device=mask.device)
+            pairs = float((mask * rows[None, :, None] * cols[None, None, :]).sum())
+            n_bytes = x.numel() * 4 + y.numel() * 4 + mask.numel() * 4 + F * P1 * 16
+            kernel, run = CU.DVEC_KERNEL, (lambda: CU.launch_dvec(*ops, mask, L, tile))
+            plain = (lambda: CU.plain_dvec(ops[0][: part[0]], ops[1][: part[1]], ops[2][: part[1]],
+                                           mask[: part[0]], L, tile))
+            extra = {"run_fraction": mask.float().mean().item()}
+        else:
+            pairs = float(F * P1 * P2)
+            n_bytes = x.numel() * 4 + y.numel() * 4 + F * P1 * 16
+            kernel, run = NN.DVEC_KERNEL, (lambda: NN.launch_dvec(*ops, L))
+            plain = lambda: NN.plain_dvec(ops[0][: part[0]], ops[1][: part[1]], ops[2][: part[1]], L)  # noqa: E731
+            extra = {}
+        b, by = bound_ms(n_bytes, pairs)
+        xc = NN.centred_x(ops[0], ops[2], L).reshape(TRAIN_CLOUDS, L * P1, 3)
+        yc = ops[1][..., :3].contiguous()
+        out[name] = dict(
+            kernel=kernel, max_abs_err=err3 if name == "h2o_cull_dvec" else err4, shape=[F, P1, P2],
+            ms=cuda_time_ms(run, reps=3),
+            plain_ms=8 * cuda_time_ms(plain, reps=1, warmup=0),
+            library_ms=cuda_time_ms(lambda: library_min_dvec(xc, yc), reps=1),
+            bound_ms=b, bound_by=by, **extra,
+        )
+        del x, y, yv, xv, ops, xc, yc
+        if name == "h2o_cull_dvec":
+            del mask
+        torch.cuda.empty_cache()
+
+    G5 = 64  # 10240 frames = 16 samples x 4 slots x 160, one cloud per frame
+    x, y, yv, _, _ = kernel_inputs(R_ALL_PAIRS_P, G=G5, L=L, seed=7)
+    yy = y.repeat_interleave(L, 0).contiguous()
+    del y
+    _, idx = NN.h2o_nn(x, yy, yv.repeat_interleave(L, 0), 1)
+    xr = torch.randn(x.shape[:2], device="cuda")
+    F, P1, _ = x.shape
+    P2 = yy.shape[1]
+    srt = torch.sort(idx, dim=1).values
+    distinct = F + int((srt[:, 1:] != srt[:, :-1]).sum())  # the y rows the gather needs
+    b5, by5 = bound_ms(x.numel() * 4 + F * P1 * 8 + distinct * 12 + F * P1 * 12 + F * P2 * 12, 0)
+    out["h2o_nn_bwd"] = dict(
+        kernel=HB.KERNEL, max_abs_err=err5, shape=[F, P1, P2],
+        ms=cuda_time_ms(lambda: HB.launch(x, yy, idx, xr, True, 1), reps=10),
+        plain_ms=cuda_time_ms(lambda: HB.plain(x, yy, idx, xr, True, 1), reps=3),
+        library_ms=cuda_time_ms(lambda: library_h2o_bwd(x, yy, idx, xr), reps=3),
+        bound_ms=b5, bound_by=by5,
+    )
+    for name in ("h2o_cull_dvec", "h2o_nn_dvec", "h2o_nn_bwd"):
+        o = out[name]
+        F, P1, P2 = o["shape"]
+        rf = f" run_fraction={o['run_fraction']:.4f}" if "run_fraction" in o else ""
+        print(f"{name} F={F} P1={P1} P2={P2}: ms={o['ms']:.4f} plain_ms={o['plain_ms']:.3f} "
+              f"library_ms={o['library_ms']:.3f} bound_ms={o['bound_ms']:.4f} ({o['bound_by']}){rf}",
+              flush=True)
+    print("plain_ms of h2o_cull_dvec and h2o_nn_dvec: 8 x the time on 1/8 of the frames", flush=True)
+    del x, yy, yv, idx, xr, srt
+    torch.cuda.empty_cache()
+    return out
+
+
+R_KERNELS = ("h2o_nn", "h2o_cull", "h2o_nn_dvec", "h2o_cull_dvec", "h2o_nn_bwd")
+
+
+def _r_kernel_objects() -> dict:
+    from oakink2_tamf_tpu_torch.ops import chamfer_cull as CU
+    from oakink2_tamf_tpu_torch.ops import chamfer_h2o_bwd as HB
+    from oakink2_tamf_tpu_torch.ops import chamfer_nn as NN
+
+    return dict(zip(R_KERNELS, (NN.KERNEL, CU.KERNEL, NN.DVEC_KERNEL, CU.DVEC_KERNEL, HB.KERNEL)))
+
+
+def _zero_counts(kernels: dict) -> None:
+    for k in kernels.values():
+        k.launches = 0
+
+
+def _r_geometry(device):
+    """(synthetic MANO of both hands, contact assets) on `device`."""
+    from oakink2_tamf_tpu_torch.core import mano as M
+    from oakink2_tamf_tpu_torch.models import losses as LL
+    from oakink2_tamf_tpu_torch.models.refine_r import stack_mano_models
+
+    mano = stack_mano_models(M.get_mano_model(None, "right"), M.get_mano_model(None, "left"), device)
+    return mano, LL.load_contact_assets(device=device)
+
+
+def _r_training(device, cfg, backend: str, seed: int = 0):
+    """(state, step_fn, mano, assets) of an R train step on `device`, weights
+    from `seed` (built on the CPU, then moved: the same on every device)."""
+    import torch
+
+    from oakink2_tamf_tpu_torch.models import losses as LL
+    from oakink2_tamf_tpu_torch.models.refine_r import SegmentRefineNet
+    from oakink2_tamf_tpu_torch.parallel import train as PT
+
+    torch.manual_seed(seed)
+    net = SegmentRefineNet(cfg).to(device)
+    state = PT.TrainState(net, PT.make_optimizer(net.named_parameters()))
+    mano, assets = _r_geometry(device)
+    step = PT.make_r_train_step(mano, assets, LL.RefineLossConfig(), backend=backend)
+    return state, step, mano, assets
+
+
+def _r_batch(bs: int, L: int, nobj: int, P: int, seed: int, mano, device, cache: bool = True):
+    """A collated R batch on `device`: synthetic segments, the target-h2o
+    cache precomputed on the device (when `cache`), and the Gaussian-perturb
+    adaptor. -> (batch, precompute seconds)."""
+    import torch
+
+    from oakink2_tamf_tpu_torch.data.adaptors import GaussianPerturbSampleAdaptor
+    from oakink2_tamf_tpu_torch.data.collate import SegmentCollate
+    from oakink2_tamf_tpu_torch.data.synthetic import SyntheticSegments
+    from oakink2_tamf_tpu_torch.data.target_cache import TargetH2OCache
+    from oakink2_tamf_tpu_torch.launch import common
+
+    ds = SyntheticSegments(bs, seq_len=L, max_nobj=nobj, n_obj_points=P, seed=seed)
+    collate = SegmentCollate(max_nobj=nobj, n_obj_points=P)
+    pre = 0.0
+    if cache:
+        ds = TargetH2OCache(ds, mano, collate)
+        t0 = time.perf_counter()
+        ds.precompute()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        pre = time.perf_counter() - t0
+    ds = GaussianPerturbSampleAdaptor(ds, seed=0)
+    return common.device_batch(collate([ds[i] for i in range(bs)]), device), pre
+
+
+def small_r_train_parity() -> None:
+    """A small R train step on the GPU (kernels) and on the CPU (plain
+    versions): the same weights and batch, dropout 0, on the culled route
+    (forced) and the all-pairs route. Loss within rtol 1e-4; each
+    parameter's clipped gradient within 2e-3 of its norm (+1e-6), as the G
+    step is held."""
+    import torch
+
+    from oakink2_tamf_tpu_torch.models.refine_r import RefineConfig
+
+    cfg = RefineConfig(latent_dim=32, ff_size=64, num_layers=1, num_heads=4, dropout=0.0)
+    kernels = _r_kernel_objects()
+    for backend, used in (("cull", "h2o_cull_dvec"), ("auto", "h2o_nn_dvec")):
+        res = {}
+        for dev in ("cuda", "cpu"):
+            state, step, mano, _ = _r_training(torch.device(dev), cfg, backend)
+            db, _ = _r_batch(4, 16, 2, 512, 5, mano, torch.device(dev), cache=False)
+            _zero_counts(kernels)
+            m = step(state, db)
+            counts = {n: k.launches for n, k in kernels.items()}
+            if dev == "cuda":
+                require(counts[used] == 1, f"small R step ({backend}): {used} launched {counts[used]} times")
+            res[dev] = (float(m["loss"]), {k: p.grad.cpu() for k, p in state.model.named_parameters()})
+        la, lb = res["cuda"][0], res["cpu"][0]
+        require(abs(la - lb) <= 1e-4 * abs(lb), f"R train step {backend}: GPU loss {la} vs CPU {lb}")
+        worst = 0.0
+        for k, gb in res["cpu"][1].items():
+            dd = (res["cuda"][1][k] - gb).norm().item()
+            require(dd <= 2e-3 * gb.norm().item() + 1e-6, f"R train step {backend}: grad {k} differs by {dd}")
+            worst = max(worst, dd / (gb.norm().item() + 1e-12))
+        print(f"small R train step ({backend}): GPU (kernels) vs CPU (plain) loss {la:.6f} / {lb:.6f}, "
+              f"worst relative grad diff {worst:.2e}", flush=True)
+
+
+def r_train_main_path():
+    """R training at full width: arch_refine (dropout 0.1), batch 64 x 160
+    frames x 4 objects x 8192 points, target_h2o from TargetH2OCache, sample
+    from the Gaussian-perturb adaptor; one warm-up step, then 3 timed steps
+    with the counts set to 0 just before; then the split of a step on the
+    same batch."""
+    import torch
+
+    from oakink2_tamf_tpu_torch.models import losses as LL
+    from oakink2_tamf_tpu_torch.models.refine_r import (
+        RefineConfig, batch_recover_mano, multi_object_h2o_dist, refine_forward, sample_geometry,
+        target_geometry,
+    )
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    state, step, mano, assets = _r_training(dev, RefineConfig(), "auto")
+    db, pre = _r_batch(TRAIN_BS, TRAIN_L, TRAIN_NOBJ, TRAIN_P, 11, mano, dev)
+    torch.cuda.synchronize()
+    print(f"R main path: model + batch {time.perf_counter() - t0:.2f} s, of which the target-h2o cache "
+          f"precompute ({TRAIN_BS} segments on the card) {pre:.3f} s "
+          f"({sum(p.numel() for p in state.model.parameters())} parameters)", flush=True)
+    t0 = time.perf_counter()
+    step(state, db)
+    torch.cuda.synchronize()
+    print(f"R main path: warm-up step {time.perf_counter() - t0:.3f} s", flush=True)
+
+    before = [p.detach().clone() for p in state.model.parameters()]
+    kernels = _r_kernel_objects()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(kernels)
+    times, losses = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        m = step(state, db)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    counts = {n: k.launches for n, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_s = sum(times) / len(times)
+    print(f"R main path (cull route): steps {[round(t, 4) for t in times]} s, mean {step_s:.4f} s = "
+          f"{TRAIN_BS / step_s:.3f} samples/s; losses {losses}; peak memory {peak:.2f} GiB; "
+          f"launches {counts}", flush=True)
+    require(all(v == v and abs(v) < float("inf") for v in losses), "R: non-finite training loss")
+    require(any(not torch.equal(a, b) for a, b in zip(before, state.model.parameters())), "R: parameters unchanged")
+    require(counts["h2o_cull"] == 3, f"R: h2o_cull (sample geometry) launched {counts['h2o_cull']} times in 3 steps")
+    require(counts["h2o_cull_dvec"] == 3, f"R: h2o_cull_dvec launched {counts['h2o_cull_dvec']} times in 3 steps")
+    del before
+
+    # where the step's time goes, each piece alone on the same batch
+    net, mask = state.model, db["mask"]
+    cond = {k: db[k] for k in ("hand_side", "shape", "obj_embedding", "obj_traj", "obj_mask")}
+    with torch.no_grad():
+        sg = sample_geometry(mano, db, frame_mask=mask)
+        res = refine_forward(net, mano, db, with_target=False, sample_geom=sg, loss_frame_mask=mask)
+        tgt = target_geometry(mano, db, frame_mask=mask)
+
+    with torch.no_grad():
+        s_verts = batch_recover_mano(mano, db["sample_pose_repr"], db["shape"], db["hand_side"])[0]
+    r_pose = res["refine_pose_repr"].detach()
+    with torch.no_grad():
+        r_verts = batch_recover_mano(mano, r_pose, db["shape"], db["hand_side"])[0]
+
+    def sample_mano():
+        with torch.no_grad():
+            batch_recover_mano(mano, db["sample_pose_repr"], db["shape"], db["hand_side"])
+
+    def sample_h2o():
+        with torch.no_grad():
+            multi_object_h2o_dist(s_verts, db["obj_traj"], db["obj_points"], db["obj_mask"],
+                                  x_perm=mano.template_perm, frame_mask=mask)
+
+    def r_fwd_bwd():
+        net.zero_grad(set_to_none=True)
+        net(db["sample_pose_repr"], sg["sample_h2o_dist"], cond).square().mean().backward()
+
+    def refined_mano():
+        v, j, _ = batch_recover_mano(mano, r_pose.clone().requires_grad_(True), db["shape"], db["hand_side"])
+        (v.sum() + j.sum()).backward()
+
+    def refined_h2o():
+        h = multi_object_h2o_dist(r_verts.clone().requires_grad_(True), db["obj_traj"], db["obj_points"],
+                                  db["obj_mask"], x_perm=mano.template_perm, frame_mask=mask)
+        (h * mask[:, :, None]).sum().backward()
+
+    def loss_pass():
+        o = {k: res[k].detach().requires_grad_(True) for k in
+             ("refine_hand_joints", "refine_hand_verts", "refine_h2o_dist")}
+        LL.segment_refine_loss(assets, LL.RefineLossConfig(), {**o, **tgt}, db)[0].backward()
+
+    split = {
+        "sample MANO with normals (no grad)": cuda_time_ms(sample_mano, reps=3),
+        "sample h2o (cull mask + h2o_cull, no grad)": cuda_time_ms(sample_h2o, reps=3),
+        "R forward+backward": cuda_time_ms(r_fwd_bwd, reps=3),
+        "refined MANO with normals forward+backward": cuda_time_ms(refined_mano, reps=3),
+        "refined h2o (cull mask + h2o_cull_dvec) forward+backward": cuda_time_ms(refined_h2o, reps=3),
+        "loss forward+backward": cuda_time_ms(loss_pass, reps=3),
+        "optimizer (clip + AdamW + LR)": cuda_time_ms(state.optimizer.step, reps=3),
+    }
+    print("R step split (ms, each alone on the same batch): "
+          + "; ".join(f"{k} {v:.3f}" for k, v in split.items()), flush=True)
+    del db, sg, res, tgt, s_verts, r_verts, r_pose
+    torch.cuda.empty_cache()
+    return state, counts, step_s
+
+
+def r_all_pairs_route(state):
+    """The same model on a 2048-point batch (the repo default cloud), 2
+    steps: the all-pairs kernels run, #4 in the refined branch."""
+    import torch
+
+    from oakink2_tamf_tpu_torch.models import losses as LL
+    from oakink2_tamf_tpu_torch.parallel import train as PT
+
+    dev = torch.device("cuda")
+    mano, assets = _r_geometry(dev)
+    step = PT.make_r_train_step(mano, assets, LL.RefineLossConfig())
+    db, _ = _r_batch(TRAIN_BS, TRAIN_L, TRAIN_NOBJ, R_ALL_PAIRS_P, 12, mano, dev)
+    kernels = _r_kernel_objects()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(kernels)
+    times, losses = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        m = step(state, db)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    counts = {n: k.launches for n, k in kernels.items()}
+    print(f"R all-pairs route ({R_ALL_PAIRS_P} points): steps {[round(t, 4) for t in times]} s; losses {losses}; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {counts}", flush=True)
+    require(all(v == v and abs(v) < float("inf") for v in losses), "R all-pairs: non-finite loss")
+    require(counts["h2o_nn_dvec"] == 2, f"R all-pairs: h2o_nn_dvec launched {counts['h2o_nn_dvec']} times")
+    require(counts["h2o_cull"] == 0 and counts["h2o_cull_dvec"] == 0, "R all-pairs: a culled kernel launched")
+    return counts
+
+
+def r_entry_point() -> None:
+    """launch/train_r.main on the synthetic smoke config, on the card."""
+    import torch
+
+    from oakink2_tamf_tpu_torch.launch import train_r
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    kernels = _r_kernel_objects()
+    _zero_counts(kernels)
+    t0 = time.perf_counter()
+    state = train_r.main(["--cfg", os.path.join(root, "config/synthetic_smoke.yml"), "--exp_id", "chip_smoke_r"])
+    torch.cuda.synchronize()
+    counts = {n: k.launches for n, k in kernels.items()}
+    require(state.step == 4, f"train_r.main took {state.step} steps, expected 4")
+    require(all(torch.isfinite(p).all() for p in state.model.parameters()), "train_r.main: non-finite weights")
+    require(next(state.model.parameters()).is_cuda, "train_r.main did not run on the card")
+    print(f"train_r.main (synthetic_smoke.yml, cuda): 2 epochs, {state.step} steps in "
+          f"{time.perf_counter() - t0:.2f} s; launches {counts}", flush=True)
+    require(counts["h2o_nn_dvec"] == 4, "train_r.main did not run the refined branch's kernel")
+
+
+def grad_y_path():
+    """Autograd through point2point_h2o(grad_y=True) on the GPU (#1 forward,
+    #5 backward) and on the CPU (plain versions), 4 frames x 778 rows x
+    2048 points with a ragged and an all-invalid cloud. Each device centres
+    a cloud on its own mean, summed in another order; the coordinates lie
+    on a 2^-12 grid, where those sums are exact. What may remain is the
+    plain version's rare double rounding (float64 fma emulation): distances
+    within rtol 1e-6 + 5e-8 m (an ulp of the 0.1 m-scale centred
+    coordinates); on rows whose argmin agrees (at least 99.9%) gx within
+    rtol 1e-4 / atol 1e-6; on frames whose argmins all agree gy within 1e-4
+    of the frame's norm."""
+    import torch
+
+    from oakink2_tamf_tpu_torch.core import geometry as G
+    from oakink2_tamf_tpu_torch.ops import chamfer_nn as NN
+
+    x, y, yv, _, _ = kernel_inputs(R_ALL_PAIRS_P, G=4, L=1, seed=8)
+    x, y = (torch.round(t * 4096) / 4096 for t in (x, y))
+    w = torch.randn(4, 778, device="cuda")
+    kernels = _r_kernel_objects()
+    res = {}
+    counts = {}
+    for dev in ("cuda", "cpu"):
+        xt = x.to(dev).clone().requires_grad_(True)
+        yt = y.to(dev).clone().requires_grad_(True)
+        _zero_counts(kernels)
+        d = G.point2point_h2o(xt, yt, yv.to(dev), grad_y=True)
+        (w.to(dev) * d).sum().backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts = {n: k.launches for n, k in kernels.items()}
+        res[dev] = (d.detach().cpu(), xt.grad.cpu(), yt.grad.cpu())
+    require(counts["h2o_nn"] == 1 and counts["h2o_nn_bwd"] == 1, "grad_y path: #1 and #5 did not both launch")
+    (da, gxa, gya), (db, gxb, gyb) = res["cuda"], res["cpu"]
+    same = NN.h2o_nn(x, y, yv, 1)[1].cpu() == NN.h2o_nn(x.cpu(), y.cpu(), yv.cpu(), 1)[1]
+    frames = same.all(dim=1)
+    d_err = (da - db).abs().max().item()
+    print(f"grad_y path: distances differ on {int((da != db).sum())} of {da.numel()} rows (max abs "
+          f"{d_err}); argmins differ on {int((~same).sum())} rows", flush=True)
+    require(torch.allclose(da, db, rtol=1e-6, atol=5e-8), f"grad_y path: distances differ by {d_err}")
+    require(same.float().mean().item() >= 0.999, "grad_y path: argmins differ on more than 0.1% of the rows")
+    require(torch.allclose(gxa[same], gxb[same], rtol=1e-4, atol=1e-6),
+            f"grad_y path: gx differs by {(gxa - gxb)[same].abs().max().item()}")
+    require(bool(frames.any()) and scatter_close(gya[frames], gyb[frames], rtol=1e-4),
+            f"grad_y path: gy differs by {(gya - gyb)[frames].abs().max().item()}")
+    print(f"grad_y path: GPU matches CPU (gy max abs err {(gya - gyb)[frames].abs().max().item()} over "
+          f"{int(frames.sum())} frames); launches {counts}", flush=True)
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -699,6 +1179,7 @@ def main() -> int:
     from oakink2_tamf_tpu_torch._device import set_fp32_precision
     from oakink2_tamf_tpu_torch.ops import _build
     from oakink2_tamf_tpu_torch.ops import chamfer_cull as CU
+    from oakink2_tamf_tpu_torch.ops import chamfer_h2o_bwd as HB
     from oakink2_tamf_tpu_torch.ops import chamfer_loss as CL
     from oakink2_tamf_tpu_torch.ops import chamfer_nn as NN
     from oakink2_tamf_tpu_torch.ops import chamfer_signed as CS
@@ -707,7 +1188,8 @@ def main() -> int:
     t_start = time.perf_counter()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}", flush=True)
 
-    kernels = [NN.KERNEL, CU.KERNEL, CS.KERNEL, CS.BWD_KERNEL, CL.KERNEL]
+    kernels = [NN.KERNEL, CU.KERNEL, CS.KERNEL, CS.BWD_KERNEL, CL.KERNEL,
+               NN.DVEC_KERNEL, CU.DVEC_KERNEL, HB.KERNEL]
     t0 = time.perf_counter()
     _build.build_all(kernels)
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
@@ -721,10 +1203,14 @@ def main() -> int:
     kstats = check_kernels()
     phase("training kernels")
     kstats.update(check_training_kernels())
+    phase("R kernels")
+    kstats.update(check_r_kernels())
     phase("small pipeline parity")
     small_parity()
     phase("small train-step parity")
     small_train_parity()
+    phase("small R train-step parity")
+    small_r_train_parity()
     phase("training main path (fused)")
     state, db, train_counts, _ = train_main_path()
     phase("composed route")
@@ -733,15 +1219,28 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase("entry point")
     entry_point()
+    phase("R training main path (cull route)")
+    r_state, r_counts, _ = r_train_main_path()
+    phase("R all-pairs route")
+    r_ap_counts = r_all_pairs_route(r_state)
+    del r_state
+    torch.cuda.empty_cache()
+    phase("R entry point")
+    r_entry_point()
+    phase("grad_y path")
+    gy_counts = grad_y_path()
     phase("serving main path, cull route")
     cull_counts, _ = main_path(8192, "", "h2o_cull", "main path (cull route, 8192 points)")
     phase("serving main path, all-pairs route")
     nn_counts, _ = main_path(2048, "50", "h2o_nn", "main path (all-pairs route, 2048 points)")
     # each kernel's count from the path that runs it: serving for #1/#2, the
-    # fused training path for #6/#8, the composed route for #7
+    # fused G training path for #6/#8, the composed route for #7, the R
+    # training paths for #3 (cull) and #4 (all-pairs), the grad_y path for #5
     launches = {"h2o_nn": nn_counts["h2o_nn"], "h2o_cull": cull_counts["h2o_cull"],
                 "nn_signed": train_counts["nn_signed"], "dist_loss": train_counts["dist_loss"],
-                "nn_signed_bwd": composed_counts["nn_signed_bwd"]}
+                "nn_signed_bwd": composed_counts["nn_signed_bwd"],
+                "h2o_cull_dvec": r_counts["h2o_cull_dvec"], "h2o_nn_dvec": r_ap_counts["h2o_nn_dvec"],
+                "h2o_nn_bwd": gy_counts["h2o_nn_bwd"]}
 
     line = {"kernels": []}
     for name, st in kstats.items():

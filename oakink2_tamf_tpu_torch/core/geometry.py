@@ -4,9 +4,12 @@ the serving path and G training run).
 
 `point2point_h2o` routes like the JAX package does on the TPU: the
 bounds-culled kernel (ops/chamfer_cull.py) when P2 >= CULL_MIN_P2 and
-grad_y=False, the all-pairs kernel (ops/chamfer_nn.py) otherwise. It is
-forward only: those kernels have no backward yet (the R-training slice adds
-it), so a call that would need a gradient raises.
+grad_y=False, the all-pairs kernel (ops/chamfer_nn.py) otherwise. Without a
+gradient it runs the forward-only kernels (#1, #2). Under autograd with
+grad_y=False the forward is the route's dvec kernel (#3 culled, #4
+all-pairs) and the backward elementwise; with grad_y=True it is the
+all-pairs forward (#1) and the backward kernel (#5,
+ops/chamfer_h2o_bwd.py).
 
 `point2point_signed` is the signed bidirectional pair (ops/chamfer_signed.py)
 with its backward kernel. CUDA tensors go to the kernels, CPU tensors to
@@ -18,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops import chamfer_cull, chamfer_nn, chamfer_signed
+from ..ops import chamfer_cull, chamfer_h2o_bwd, chamfer_nn, chamfer_signed
 
 CULL_MIN_P2 = 4096
 
@@ -72,39 +75,105 @@ def vertex_normals(verts: torch.Tensor, faces: np.ndarray) -> torch.Tensor:
     return acc * torch.rsqrt(torch.clamp_min(n2, 1e-24))
 
 
+class _H2ODvec(torch.autograd.Function):
+    """dist [F, P1] with the TPU VJP of the grad_y=False routes (`_cull_fwd`
+    / `_cull_bwd`, chamfer_cull.py:368-391; the dvec branch of `_p2h_fwd` /
+    `_p2h_bwd`, chamfer_pallas.py:681-717): the forward kernel carries
+    dvec = x - y*, so gx = cot / max(dist, 1e-12) * dvec and y gets no
+    gradient. A row that took no point has dvec = 0 and gets none either."""
+
+    @staticmethod
+    def forward(ctx, x, y, y_valid, x_valid, cull: bool, y_group: int):
+        if cull:
+            d2, dvec = chamfer_cull.h2o_cull_dvec(x, y, y_valid, y_group=y_group, x_valid=x_valid)
+        else:
+            d2, dvec = chamfer_nn.h2o_nn_dvec(x, y, y_valid, y_group)
+        dist = torch.sqrt(torch.clamp_min(d2, 0.0))
+        ctx.save_for_backward(dist, dvec)
+        return dist
+
+    @staticmethod
+    def backward(ctx, g):
+        dist, dvec = ctx.saved_tensors
+        xr = g / torch.clamp_min(dist, chamfer_signed.DIST_EPS)
+        return xr[..., None] * dvec, None, None, None, None, None
+
+
+class _H2OGradY(torch.autograd.Function):
+    """dist [F, P1] with the TPU VJP of the grad_y=True route (`_p2h_fwd` /
+    `_p2h_bwd`, chamfer_pallas.py:697-725): the all-pairs forward (#1)
+    keeps the first-min index, and the backward kernel (#5) gives gx and,
+    when y needs it, gy; y_group == 1."""
+
+    @staticmethod
+    def forward(ctx, x, y, y_valid):
+        d2, idx = chamfer_nn.h2o_nn(x, y, y_valid, 1)
+        dist = torch.sqrt(torch.clamp_min(d2, 0.0))
+        ctx.save_for_backward(x, y, dist, idx)
+        return dist
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y, dist, idx = ctx.saved_tensors
+        xr = g / torch.clamp_min(dist, chamfer_signed.DIST_EPS)
+        gx, gy = chamfer_h2o_bwd.h2o_backward(x, y, idx, xr, grad_y=ctx.needs_input_grad[1])
+        return gx.to(x.dtype), gy, None
+
+
+def _h2o(x, y, y_valid, x_valid, cull: bool, grad_y: bool, y_group: int) -> torch.Tensor:
+    if not (torch.is_grad_enabled() and (x.requires_grad or (grad_y and y.requires_grad))):
+        if cull:
+            d2 = chamfer_cull.h2o_cull(x, y, y_valid, y_group=y_group, x_valid=x_valid)
+        else:
+            d2, _ = chamfer_nn.h2o_nn(x, y, y_valid, y_group)
+        return torch.sqrt(torch.clamp_min(d2, 0.0))
+    if grad_y:
+        return _H2OGradY.apply(x, y, y_valid)
+    return _H2ODvec.apply(x, y.detach(), y_valid, x_valid, cull, y_group)
+
+
 def point2point_h2o(
     x: torch.Tensor,  # [N, P1, 3]
     y: torch.Tensor,  # [N // y_group, P2, 3]
     y_valid: torch.Tensor | None = None,  # [N // y_group, P2] bool
     *,
+    backend: str = "auto",
     x_perm: np.ndarray | None = None,
     grad_y: bool = True,
     y_group: int = 1,
     x_valid: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Unsigned x->y nearest distances [N, P1].
+    """Unsigned x->y nearest distances [N, P1], differentiable in x (and in
+    y when grad_y, which requires y_group == 1).
 
-    `x_valid` [N] is a culling hint for the cull route: False frames come out
-    BIG there (callers must replace them) and are searched on the all-pairs
-    route. `x_perm` (core/mano.hand_template_perm) reorders the rows before
-    the cull route so its 128-row regions are compact; distances map back
-    through the inverse permutation."""
+    Backends: "auto" takes the culled route for grad_y=False at
+    P2 >= CULL_MIN_P2 and the all-pairs route otherwise; "cull" forces the
+    culled route (grad_y=False only); "exact" and "pallas" force the
+    all-pairs route. "cluster" and "xla" are not ported (ROADMAP.md §B).
+
+    `x_valid` [N] is a culling hint for the culled route: False frames come
+    out BIG there (callers must replace them) and are searched on the
+    all-pairs route. `x_perm` (core/mano.hand_template_perm) reorders the
+    rows before the culled route so its 128-row regions are compact;
+    distances map back through the inverse permutation, and both gathers
+    stay in the autograd graph."""
+    if backend in ("cluster", "xla"):
+        raise NotImplementedError(
+            f"point2point_h2o backend={backend!r} is not ported (its kernels are listed "
+            "in ROADMAP.md §B); use 'auto', 'cull' or 'exact'"
+        )
+    if backend not in ("auto", "cull", "exact", "pallas"):
+        raise ValueError(f"unknown point2point_h2o backend {backend!r}")
     if y_group > 1 and grad_y:
         raise NotImplementedError("y_group > 1 requires grad_y=False")
-    if torch.is_grad_enabled() and (x.requires_grad or y.requires_grad):
-        raise NotImplementedError("the h2o kernels are forward-only")
-    if not grad_y and y.shape[1] >= CULL_MIN_P2:
-        if x_perm is not None:
-            perm = torch.as_tensor(np.asarray(x_perm), device=x.device)
-            inv = torch.argsort(perm)
-            d2 = chamfer_cull.h2o_cull(
-                x[:, perm], y, y_valid, y_group=y_group, x_valid=x_valid
-            )[:, inv]
-        else:
-            d2 = chamfer_cull.h2o_cull(x, y, y_valid, y_group=y_group, x_valid=x_valid)
-    else:
-        d2, _ = chamfer_nn.h2o_nn(x, y, y_valid, y_group)
-    return torch.sqrt(torch.clamp_min(d2, 0.0))
+    if backend == "cull" and grad_y:
+        raise NotImplementedError("backend='cull' requires grad_y=False")
+    cull = backend == "cull" or (backend == "auto" and not grad_y and y.shape[1] >= CULL_MIN_P2)
+    if cull and x_perm is not None:
+        perm = torch.as_tensor(np.asarray(x_perm), device=x.device)
+        inv = torch.argsort(perm)
+        return _h2o(x[:, perm], y, y_valid, x_valid, True, grad_y, y_group)[:, inv]
+    return _h2o(x, y, y_valid, x_valid, cull, grad_y, y_group)
 
 
 def point2point_signed(

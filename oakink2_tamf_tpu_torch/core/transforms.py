@@ -116,3 +116,15 @@ def pose_repr_to_quat(pose_repr: torch.Tensor) -> tuple[torch.Tensor, torch.Tens
     """pose_repr [..., 99] -> (tsl [..., 3], joint quats [..., 16, 4])."""
     tsl, rotmat = pose_repr_decode(pose_repr)
     return tsl, rotmat_to_quat(rotmat)
+
+
+def renormalize_pose_repr_rot6d(pose_repr: torch.Tensor) -> torch.Tensor:
+    """Re-normalize the two 3-vectors of each joint's rot6d block (the
+    Gaussian-perturb sample adaptor's last step; reference
+    dataset/pose_repr_sample.py:77-86)."""
+    lead = pose_repr.shape[:-1]
+    d6 = pose_repr[..., 3:POSE_REPR_DIM].reshape(lead + (N_JOINT_ROT, 6))
+    a = d6[..., 0:3] / torch.clamp_min(torch.linalg.vector_norm(d6[..., 0:3], dim=-1, keepdim=True), 1e-7)
+    b = d6[..., 3:6] / torch.clamp_min(torch.linalg.vector_norm(d6[..., 3:6], dim=-1, keepdim=True), 1e-7)
+    d6 = torch.cat((a, b), dim=-1).reshape(lead + (N_JOINT_ROT * 6,))
+    return torch.cat((pose_repr[..., 0:3], d6), dim=-1)

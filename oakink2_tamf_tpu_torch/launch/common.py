@@ -95,10 +95,12 @@ def build_loader(reg: ConfigRegistry, dataset, split: str, *, shuffle=None, drop
     )
 
 
-def build_eval_loaders(reg: ConfigRegistry) -> dict[str, DataLoader]:
+def build_eval_loaders(reg: ConfigRegistry, wrap=None) -> dict[str, DataLoader]:
     """val/test loaders: a split is built only when configured (synthetic
     data, a cache dict or a process range); a configured split that fails
-    to build raises; drop_last=False so the whole split is evaluated."""
+    to build raises; drop_last=False so the whole split is evaluated.
+    `wrap(split, dataset)` adapts the dataset before the loader (R's sample
+    adaptors)."""
     loaders: dict[str, DataLoader] = {}
     data_cfg = reg.select("data")
     for split in ("val", "test"):
@@ -107,7 +109,10 @@ def build_eval_loaders(reg: ConfigRegistry) -> dict[str, DataLoader]:
                 or split_cfg.get("process_range")):
             _logger.info("%s split not configured; skipping its eval", split)
             continue
-        ld = build_loader(reg, build_dataset(reg, split), split, shuffle=False, drop_last=False)
+        ds = build_dataset(reg, split)
+        if wrap is not None:
+            ds = wrap(split, ds)
+        ld = build_loader(reg, ds, split, shuffle=False, drop_last=False)
         if len(ld):
             loaders[split] = ld
         else:

@@ -5,9 +5,10 @@ launch/train.py workflow) on one device.
         --cfg config/loss_param.yml --data.synthetic true [--runtime.device cpu] [--commit]
 
 The YAMLs are the JAX package's. The device is `runtime.device` ("cuda" by
-default; without a GPU the run raises unless told "cpu"). Not ported yet:
-the real-data segments (`data.synthetic` must be true), the GT-geometry
-cache (`train.data.cache_gt_geom`), the profiler trace hook, and the
+default; without a GPU the run raises unless told "cpu").
+`train.data.cache_gt_geom` precomputes the GT side of the extra loss once
+per segment (data/target_cache.GTGeomCache). Not ported yet: the real-data
+segments (`data.synthetic` must be true), the profiler trace hook, and the
 `train.chunk` tile (the CUDA kernels need none).
 """
 
@@ -22,6 +23,8 @@ import torch
 from .._device import resolve_device
 from ..core import diffusion as D
 from ..core import mano as M
+from ..data.collate import SegmentCollate
+from ..data.target_cache import GTGeomCache
 from ..models import losses as LL
 from ..models.mdm_g import InteractionSegmentMDM, MDMConfig
 from ..models.refine_r import stack_mano_models
@@ -115,16 +118,23 @@ def main(argv=None) -> PT.TrainState:
         tdc = reg.select("train.data")
     except KeyError:
         tdc = {}
-    if bool(tdc.get("cache_gt_geom", False)):
-        raise NotImplementedError(
-            "train.data.cache_gt_geom needs the GT-geometry cache (data/target_cache.py, "
-            "GTGeomCache), which comes with the R-training slice of the port"
-        )
     mano_path = reg.select("mano").get("mano_path") or None
     mano_stack = stack_mano_models(
         M.get_mano_model(mano_path, "right"), M.get_mano_model(mano_path, "left"), device
     )
-    train_loader = common.build_loader(reg, common.build_dataset(reg, "train"), "train")
+    train_ds = common.build_dataset(reg, "train")
+    if bool(tdc.get("cache_gt_geom", False)):
+        # every epoch reuses the GT-side signed chamfer (gt_o2h / gt_h2o),
+        # precomputed on the run's device before the first step
+        data_cfg = reg.select("data")
+        train_ds = GTGeomCache(
+            train_ds, mano_stack,
+            SegmentCollate(max_nobj=int(data_cfg.get("max_nobj", 4)),
+                           n_obj_points=int(data_cfg.get("n_obj_points", 2048))),
+            cache_dir=tdc.get("gt_geom_cache_dir") or None,
+        )
+        train_ds.precompute()
+    train_loader = common.build_loader(reg, train_ds, "train")
     clip = common.build_clip(reg, device)
 
     torch.manual_seed(seed)  # weights and dropout

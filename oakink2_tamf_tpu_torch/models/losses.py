@@ -1,8 +1,9 @@
-"""G's geometric extra loss (port of oakink2_tamf_tpu/models/losses.py:37-394;
-reference model/interaction_segment_extra_loss.py).
+"""G's geometric extra loss and R's refine loss (port of
+oakink2_tamf_tpu/models/losses.py:37-421; reference
+model/interaction_segment_extra_loss.py, model/segment_refine_model_loss.py).
 
 Reduction quirks kept from the reference, as the JAX package keeps them:
-- the per-item losses are SUMMED over the batch;
+- G's per-item losses are SUMMED over the batch, R's are MEANED;
 - `mask_coef = L / sum(mask)` rescales means taken over the padded length;
 - per-object terms are averaged with 1/num_obj over the REAL objects.
 
@@ -95,6 +96,15 @@ class ExtraLossConfig:
     coef_edge_len: float = 0.1
     coef_dist_h: float = 0.1
     coef_dist_o: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class RefineLossConfig:
+    """config/loss_param_refine.yml coefficients."""
+
+    coef_rec_joint: float = 1.0
+    coef_rec_vert: float = 1.0
+    coef_dist_h: float = 0.1
 
 
 def _edges(verts: torch.Tensor, vpe: torch.Tensor) -> torch.Tensor:
@@ -253,3 +263,32 @@ def interaction_segment_extra_loss(
     )
     terms["loss"] = loss
     return loss, terms
+
+
+def segment_refine_loss(
+    assets: ContactAssets,
+    cfg: RefineLossConfig,
+    output: dict[str, torch.Tensor],
+    batch: dict[str, Any],
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """R's loss (ref segment_refine_model_loss.py:35-84): joint and vert
+    reconstruction against the target and |h2o| matching, meaned over the
+    batch. Mask-padded frames weigh zero: the culled route's h2o there is
+    finite (sqrt(BIG) = 1e15), so it is 0 in the value and the gradient."""
+    mask = batch["mask"]  # [bs, L]
+    mask_coef = mask.shape[1] / torch.clamp_min(torch.sum(mask, dim=1), 1.0)  # [bs]
+    m = mask[:, :, None]
+
+    jd = torch.sum((output["refine_hand_joints"] - output["target_hand_joints"]) ** 2, dim=-1) * m
+    rec_joint = torch.mean(mask_coef * torch.mean(jd, dim=(1, 2)))
+
+    vd = torch.sum((output["refine_hand_verts"] - output["target_hand_verts"]) ** 2, dim=-1) * m
+    vd = vd * (assets.v_weights**2)[None, None, :]
+    rec_vert = torch.mean(mask_coef * torch.mean(vd, dim=(1, 2)))
+
+    dh = torch.abs(torch.abs(output["refine_h2o_dist"]) - torch.abs(output["target_h2o_dist"])) * m
+    dh = dh * assets.v_weights2[None, None, :]
+    dist_h = torch.mean(mask_coef * torch.mean(dh, dim=(1, 2)))
+
+    loss = cfg.coef_rec_joint * rec_joint + cfg.coef_rec_vert * rec_vert + cfg.coef_dist_h * dist_h
+    return loss, {"loss": loss, "rec_joint": rec_joint, "rec_vert": rec_vert, "dist_h": dist_h}

@@ -3,8 +3,8 @@
 - `SegmentRefineNet`: tokens [hand_side, shape, obj_embed], a 3-stream input
   merge (pose + object trajectory + h2o feature), trunk, residual output.
 - `refine_forward`: geometry of the input sample (MANO + h2o), the network,
-  and geometry of the refined output. The GT-target branch (training) is not
-  ported yet.
+  geometry of the refined output (differentiable through the h2o kernels)
+  and, for training and evaluation, of the GT target.
 """
 
 from __future__ import annotations
@@ -151,12 +151,15 @@ def multi_object_h2o_dist(
     obj_mask: torch.Tensor,  # [bs, nobj] bool
     x_perm: np.ndarray | None = None,
     frame_mask: torch.Tensor | None = None,  # [bs, L]
+    backend: str = "auto",
 ) -> torch.Tensor:
     """Unsigned hand->object distances [bs, L, 778]: per-object searches in
     each object's canonical frame (one shared cloud per (sample, object),
     y_group = L frames), then a min over the real objects. Padded object
     slots count as PAD_OBJECT_H2O. With `frame_mask`, mask-padded frames are
-    culled on the cull route and come out BIG: callers replace them."""
+    culled on the cull route and come out BIG: callers replace them.
+    Differentiable in the hand verts (core/geometry.point2point_h2o with
+    grad_y=False: the clouds come from the batch)."""
     bs, L, nhv, _ = hand_verts.shape
     nobj, P = obj_points.shape[1:3]
     x, y = _canonical_frame_operands(hand_verts, obj_traj, obj_points)
@@ -165,10 +168,42 @@ def multi_object_h2o_dist(
     if frame_mask is not None:
         x_valid = (frame_mask > 0)[:, None, :].expand(bs, nobj, L).reshape(bs * nobj * L)
     h2o = G.point2point_h2o(
-        x, y, y_valid, x_perm=x_perm, grad_y=False, y_group=L, x_valid=x_valid
+        x, y, y_valid, backend=backend, x_perm=x_perm, grad_y=False, y_group=L, x_valid=x_valid
     ).reshape(bs, nobj, L, nhv)
     h2o = torch.where(obj_mask[:, :, None, None], h2o, PAD_OBJECT_H2O)
     return torch.amin(h2o, dim=1)
+
+
+def target_geometry(
+    mano_stack: M.ManoTensors,
+    batch: dict[str, Any],
+    *,
+    backend: str = "auto",
+    frame_mask: torch.Tensor | None = None,
+) -> dict[str, torch.Tensor]:
+    """Geometry of the GT target, a function of the batch alone, computed
+    without autograd (the JAX package's stop_gradient). When the batch
+    carries a precomputed `target_h2o` (data/target_cache.TargetH2OCache)
+    the chamfer pass is skipped and only MANO runs. `frame_mask` is the
+    loss-side cull hint: culled frames come out BIG, and the loss zeroes
+    them."""
+    with torch.no_grad():
+        t_verts, t_joints, t_normals = batch_recover_mano(
+            mano_stack, batch["pose_repr"], batch["shape"], batch["hand_side"]
+        )
+        if "target_h2o" in batch:
+            t_h2o = batch["target_h2o"]
+        else:
+            t_h2o = multi_object_h2o_dist(
+                t_verts, batch["obj_traj"], batch["obj_points"], batch["obj_mask"],
+                x_perm=mano_stack.template_perm, frame_mask=frame_mask, backend=backend,
+            )
+    return {
+        "target_hand_verts": t_verts,
+        "target_hand_joints": t_joints,
+        "target_hand_normals": t_normals,
+        "target_h2o_dist": t_h2o,
+    }
 
 
 def sample_geometry(
@@ -176,6 +211,7 @@ def sample_geometry(
     batch: dict[str, Any],
     *,
     frame_mask: torch.Tensor | None = None,
+    backend: str = "auto",
 ) -> dict[str, torch.Tensor]:
     """MANO recovery and h2o of `sample_pose_repr` (the network input).
 
@@ -188,7 +224,7 @@ def sample_geometry(
     )
     s_h2o = multi_object_h2o_dist(
         s_verts, batch["obj_traj"], batch["obj_points"], batch["obj_mask"],
-        x_perm=mano_stack.template_perm, frame_mask=frame_mask,
+        x_perm=mano_stack.template_perm, frame_mask=frame_mask, backend=backend,
     )
     if frame_mask is not None:
         pad_h2o = torch.linalg.vector_norm(s_verts[:, -1:], dim=-1)  # [bs, 1, 778]
@@ -206,27 +242,40 @@ def refine_forward(
     mano_stack: M.ManoTensors,
     batch: dict[str, Any],
     *,
+    with_target: bool = True,
+    sample_geom: dict[str, torch.Tensor] | None = None,
+    backend: str = "auto",
     loss_frame_mask: torch.Tensor | None = None,
 ) -> dict[str, torch.Tensor]:
-    """Sample geometry, the network's refinement and the refined geometry
-    (JAX `refine_forward(..., with_target=False)`). `loss_frame_mask` marks
-    mask-padded frames: their refine h2o comes out BIG (never read by the
-    serving path) and their sample h2o takes the closed form above."""
+    """Sample geometry, the network's refinement, the refined geometry and
+    (with_target) the GT target's geometry, with the JAX package's result
+    keys. The network's mode decides dropout: `net.train()` or `net.eval()`
+    (flax's `deterministic`). Pass `sample_geom` (from sample_geometry) to
+    reuse a precomputed input branch, as the train step does.
+
+    `loss_frame_mask` marks mask-padded frames: their refine and target h2o
+    come out BIG on the cull route (the loss zeroes them; the serving path
+    never reads them) and their sample h2o takes sample_geometry's closed
+    form."""
     cond = {k: batch[k] for k in ("hand_side", "shape", "obj_embedding", "obj_traj", "obj_mask")}
-    sg = sample_geometry(mano_stack, batch, frame_mask=loss_frame_mask)
-    output = net(batch["sample_pose_repr"], sg["sample_h2o_dist"], cond)
+    if sample_geom is None:
+        sample_geom = sample_geometry(mano_stack, batch, frame_mask=loss_frame_mask, backend=backend)
+    output = net(batch["sample_pose_repr"], sample_geom["sample_h2o_dist"], cond)
     r_verts, r_joints, r_normals = batch_recover_mano(
         mano_stack, output, batch["shape"], batch["hand_side"]
     )
     r_h2o = multi_object_h2o_dist(
         r_verts, batch["obj_traj"], batch["obj_points"], batch["obj_mask"],
-        x_perm=mano_stack.template_perm, frame_mask=loss_frame_mask,
+        x_perm=mano_stack.template_perm, frame_mask=loss_frame_mask, backend=backend,
     )
-    return {
+    res = {
         "refine_pose_repr": output,
         "refine_hand_verts": r_verts,
         "refine_hand_joints": r_joints,
         "refine_hand_normals": r_normals,
         "refine_h2o_dist": r_h2o,
-        **sg,
+        **sample_geom,
     }
+    if with_target:
+        res.update(target_geometry(mano_stack, batch, backend=backend, frame_mask=loss_frame_mask))
+    return res

@@ -15,8 +15,15 @@ share one per-pair function (csrc/h2o_common.cuh).
 Kernel (csrc/h2o_cull.cu) design and bound: see the source; its work is
 8 flops per pair the mask keeps.
 
-On a CUDA tensor `h2o_cull` launches the kernel or raises; on a CPU tensor
-it runs `plain`.
+`h2o_cull_dvec` (csrc/h2o_cull_dvec.cu, its own kernel and launch count)
+replaces `_cull_dvec_kernel` (:204; `_cull_forward(with_dvec=True)`,
+pallas_call at :284), the forward of the differentiated culled route
+(`_cull_fwd`): the same culled minimum with its first-min index, and
+dvec = x - y* there, from which the backward is elementwise
+(core/geometry.py).
+
+On a CUDA tensor the wrappers launch their kernel or raise; on a CPU tensor
+they run the plain versions.
 """
 
 from __future__ import annotations
@@ -39,6 +46,12 @@ KERNEL = Kernel(
     replaces="oakink2_tamf_tpu/ops/chamfer_cull.py:179",
     symbol="h2o_cull_launch",
     argtypes=[_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+)
+DVEC_KERNEL = Kernel(
+    "h2o_cull_dvec", "h2o_cull_dvec.cu",
+    replaces="oakink2_tamf_tpu/ops/chamfer_cull.py:204",
+    symbol="h2o_cull_dvec_launch",
+    argtypes=[_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 )
 
 
@@ -105,25 +118,40 @@ def cull_mask(
     return run.to(torch.int32)
 
 
-def plain(x, y4, ctr, mask, y_group: int, tile: int) -> torch.Tensor:
-    """The kernel's function in plain PyTorch, on prepared operands
-    (ops/chamfer_nn.prepare) and a mask from `cull_mask`."""
+def _culled_nearest(x, y4, ctr, mask, y_group: int, tile: int):
+    """(min d2 [F, P1], first argmin [F, P1] int32, centred x) over the tiles
+    the mask runs, in ascending tile order with a strict < (the dvec
+    kernel's order)."""
     F, P1, _ = x.shape
-    T = mask.shape[2]
     xc = NN.centred_x(x, ctr, y_group)
     region = torch.arange(P1, device=x.device) // REGION_ROWS
     best = torch.full((F, P1), BIG, dtype=torch.float32, device=x.device)
-    for t in range(T):
+    best_j = torch.zeros((F, P1), dtype=torch.int32, device=x.device)
+    for t in range(mask.shape[2]):
         run = mask[:, region, t].to(torch.bool)  # [F, P1]
         if not bool(run.any()):
             continue
-        tile_min, _ = NN.nearest(xc, y4[:, t * tile : (t + 1) * tile], y_group)
-        best = torch.where(run, torch.minimum(best, tile_min), best)
-    return best
+        tile_min, tile_j = NN.nearest(xc, y4[:, t * tile : (t + 1) * tile], y_group)
+        upd = run & (tile_min < best)
+        best = torch.where(upd, tile_min, best)
+        best_j = torch.where(upd, tile_j + t * tile, best_j)
+    return best, best_j, xc
 
 
-def launch(x, y4, ctr, mask, y_group: int, tile: int) -> torch.Tensor:
-    """Launch the CUDA kernel on prepared operands and a mask."""
+def plain(x, y4, ctr, mask, y_group: int, tile: int) -> torch.Tensor:
+    """The kernel's function in plain PyTorch, on prepared operands
+    (ops/chamfer_nn.prepare) and a mask from `cull_mask`."""
+    return _culled_nearest(x, y4, ctr, mask, y_group, tile)[0]
+
+
+def plain_dvec(x, y4, ctr, mask, y_group: int, tile: int):
+    """The dvec kernel's function in plain PyTorch: `plain`'s search with
+    the index kept, then a gather of the winning point."""
+    best, best_j, xc = _culled_nearest(x, y4, ctr, mask, y_group, tile)
+    return best, NN.dvec_at(xc, y4, best, best_j, y_group)
+
+
+def _check_operands(x, y4, ctr, mask, y_group: int, tile: int) -> None:
     F, P1, _ = x.shape
     G, P2, _ = y4.shape
     R = (P1 + REGION_ROWS - 1) // REGION_ROWS
@@ -140,13 +168,36 @@ def launch(x, y4, ctr, mask, y_group: int, tile: int) -> torch.Tensor:
         raise ValueError(f"mask {tuple(mask.shape)} does not fit F={F} R={R} P2={P2} tile={tile}")
     if F * R >= 2**31:
         raise ValueError("too many blocks for one launch")
+
+
+def launch(x, y4, ctr, mask, y_group: int, tile: int) -> torch.Tensor:
+    """Launch the CUDA kernel on prepared operands and a mask."""
+    F, P1, _ = x.shape
+    _check_operands(x, y4, ctr, mask, y_group, tile)
     d = torch.empty((F, P1), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         KERNEL.launch(
             x.data_ptr(), y4.data_ptr(), ctr.data_ptr(), mask.data_ptr(), d.data_ptr(),
-            F, P1, P2, y_group, T, tile, torch.cuda.current_stream().cuda_stream,
+            F, P1, y4.shape[1], y_group, mask.shape[2], tile,
+            torch.cuda.current_stream().cuda_stream,
         )
     return d
+
+
+def launch_dvec(x, y4, ctr, mask, y_group: int, tile: int):
+    """Launch the dvec kernel on prepared operands and a mask: (min d2
+    [F, P1], dvec [F, P1, 3])."""
+    F, P1, _ = x.shape
+    _check_operands(x, y4, ctr, mask, y_group, tile)
+    d = torch.empty((F, P1), dtype=torch.float32, device=x.device)
+    dvec = torch.empty((F, P1, 3), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        DVEC_KERNEL.launch(
+            x.data_ptr(), y4.data_ptr(), ctr.data_ptr(), mask.data_ptr(), d.data_ptr(),
+            dvec.data_ptr(), F, P1, y4.shape[1], y_group, mask.shape[2], tile,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    return d, dvec
 
 
 def h2o_cull(
@@ -169,3 +220,26 @@ def h2o_cull(
     if x.device.type != "cpu":
         raise ValueError(f"h2o_cull runs on CUDA or CPU tensors, got {x.device}")
     return plain(*ops, mask, y_group, tile)
+
+
+def h2o_cull_dvec(
+    x: torch.Tensor,  # [F, P1, 3]
+    y: torch.Tensor,  # [G, P2, 3], G = F // y_group
+    y_valid: torch.Tensor | None = None,
+    *,
+    tile: int = 2048,
+    y_group: int = 1,
+    x_valid: torch.Tensor | None = None,
+):
+    """(min squared distance [F, P1], dvec [F, P1, 3]) with culled blocks
+    skipped: `h2o_cull`'s values and dvec = x - y* at the first minimum
+    (centred). Rows that took no point (x_valid=False frames, all-invalid
+    clouds) come out BIG with dvec = 0."""
+    tile = min(tile, _round_up(y.shape[1], 128))
+    mask = cull_mask(x, y, y_valid, tile, y_group, x_valid)
+    ops = NN.prepare(x, y, y_valid, y_group)
+    if x.is_cuda:
+        return launch_dvec(*ops, mask, y_group, tile)
+    if x.device.type != "cpu":
+        raise ValueError(f"h2o_cull_dvec runs on CUDA or CPU tensors, got {x.device}")
+    return plain_dvec(*ops, mask, y_group, tile)

@@ -18,6 +18,13 @@ in squared distance), so an all-invalid cloud gives BIG, never inf.
 
 On a CUDA tensor `h2o_nn` launches the kernel or raises; on a CPU tensor it
 runs `plain`, which repeats the kernel's per-pair rounding in PyTorch.
+
+`h2o_nn_dvec` (csrc/h2o_nn_dvec.cu, its own kernel and launch count)
+replaces `_nn_h2o_dvec_kernel` (:408; `_nn_h2o_dvec_forward`, pallas_call
+at :476), the forward of the differentiated all-pairs route (`_p2h_fwd`
+with grad_y=False): the same minimum, plus dvec = x - y* at the first
+minimum, from which the backward is elementwise (core/geometry.py). Its
+plain version is `nearest` followed by a gather.
 """
 
 from __future__ import annotations
@@ -38,6 +45,12 @@ KERNEL = Kernel(
     "h2o_nn", "h2o_nn.cu",
     replaces="oakink2_tamf_tpu/ops/chamfer_pallas.py:354",
     symbol="h2o_nn_launch",
+    argtypes=[_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+)
+DVEC_KERNEL = Kernel(
+    "h2o_nn_dvec", "h2o_nn_dvec.cu",
+    replaces="oakink2_tamf_tpu/ops/chamfer_pallas.py:408",
+    symbol="h2o_nn_dvec_launch",
     argtypes=[_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 )
 
@@ -98,10 +111,9 @@ def plain(x: torch.Tensor, y4: torch.Tensor, ctr: torch.Tensor, y_group: int):
     return nearest(centred_x(x, ctr, y_group), y4, y_group)
 
 
-def launch(x: torch.Tensor, y4: torch.Tensor, ctr: torch.Tensor, y_group: int):
-    """Launch the CUDA kernel on prepared operands (see `prepare`)."""
+def _check_operands(x: torch.Tensor, y4: torch.Tensor, ctr: torch.Tensor, y_group: int) -> None:
     F, P1, _ = x.shape
-    G, P2, _ = y4.shape
+    G = y4.shape[0]
     for name, t in (("x", x), ("y4", y4), ("ctr", ctr)):
         if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 CUDA tensor")
@@ -111,6 +123,13 @@ def launch(x: torch.Tensor, y4: torch.Tensor, ctr: torch.Tensor, y_group: int):
         raise ValueError(f"bad operand shapes x {tuple(x.shape)} y4 {tuple(y4.shape)}")
     if F * ((P1 + 127) // 128) >= 2**31:
         raise ValueError("too many blocks for one launch")
+
+
+def launch(x: torch.Tensor, y4: torch.Tensor, ctr: torch.Tensor, y_group: int):
+    """Launch the CUDA kernel on prepared operands (see `prepare`)."""
+    F, P1, _ = x.shape
+    P2 = y4.shape[1]
+    _check_operands(x, y4, ctr, y_group)
     d = torch.empty((F, P1), dtype=torch.float32, device=x.device)
     idx = torch.empty((F, P1), dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
@@ -131,3 +150,54 @@ def h2o_nn(x: torch.Tensor, y: torch.Tensor, y_valid: torch.Tensor | None = None
     if x.device.type != "cpu":
         raise ValueError(f"h2o_nn runs on CUDA or CPU tensors, got {x.device}")
     return plain(*ops, y_group)
+
+
+# ---------------------------------------------------------------------------
+# with the offset to the nearest point (kernel #4)
+# ---------------------------------------------------------------------------
+
+
+def dvec_at(xc: torch.Tensor, y4: torch.Tensor, best: torch.Tensor, best_j: torch.Tensor,
+            y_group: int) -> torch.Tensor:
+    """dvec [F, P1, 3] = xc - y4[group, best_j, :3] (centred); 0 on rows that
+    took no point (best still BIG), as the kernels write it."""
+    G, P2, _ = y4.shape
+    group = torch.arange(xc.shape[0], device=xc.device) // y_group
+    y_at = y4[..., :3].reshape(G * P2, 3)[group[:, None] * P2 + best_j.long()]
+    return torch.where((best < BIG)[..., None], xc - y_at, 0.0)
+
+
+def plain_dvec(x: torch.Tensor, y4: torch.Tensor, ctr: torch.Tensor, y_group: int):
+    """The dvec kernel's function in plain PyTorch on prepared operands:
+    `nearest` followed by a gather of the winning point."""
+    xc = centred_x(x, ctr, y_group)
+    best, best_j = nearest(xc, y4, y_group)
+    return best, dvec_at(xc, y4, best, best_j, y_group)
+
+
+def launch_dvec(x: torch.Tensor, y4: torch.Tensor, ctr: torch.Tensor, y_group: int):
+    """Launch the dvec kernel on prepared operands: (min d2 [F, P1],
+    dvec [F, P1, 3])."""
+    F, P1, _ = x.shape
+    _check_operands(x, y4, ctr, y_group)
+    d = torch.empty((F, P1), dtype=torch.float32, device=x.device)
+    dvec = torch.empty((F, P1, 3), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        DVEC_KERNEL.launch(
+            x.data_ptr(), y4.data_ptr(), ctr.data_ptr(), d.data_ptr(), dvec.data_ptr(),
+            F, P1, y4.shape[1], y_group, torch.cuda.current_stream().cuda_stream,
+        )
+    return d, dvec
+
+
+def h2o_nn_dvec(x: torch.Tensor, y: torch.Tensor, y_valid: torch.Tensor | None = None,
+                y_group: int = 1):
+    """(min squared distance [F, P1], dvec [F, P1, 3]) of each row of x over
+    its cloud: dvec = x - y* at the first minimum (centred on the group's
+    y-mean, which cancels), 0 on rows of an all-invalid cloud."""
+    ops = prepare(x, y, y_valid, y_group)
+    if x.is_cuda:
+        return launch_dvec(*ops, y_group)
+    if x.device.type != "cpu":
+        raise ValueError(f"h2o_nn_dvec runs on CUDA or CPU tensors, got {x.device}")
+    return plain_dvec(*ops, y_group)

@@ -1,5 +1,6 @@
 // Shared pieces of the kernels that search a hand row's nearest object
-// point (h2o_nn.cu, h2o_cull.cu, nn_signed.cu, dist_loss.cu).
+// point (h2o_nn.cu, h2o_cull.cu, h2o_nn_dvec.cu, h2o_cull_dvec.cu,
+// nn_signed.cu, dist_loss.cu).
 //
 // Every kernel computes each (x, y) pair's squared distance with the one
 // function below, so their minima are bit-identical: the culled kernel only
@@ -74,6 +75,60 @@ __device__ __forceinline__ void h2o_row_scan(
         }
         __syncthreads();
     }
+}
+
+// The culled row search with the first-min index (h2o_cull_dvec.cu): like
+// h2o_row_scan over the tiles whose mask entry m[t] is set, in ascending
+// tile order with a strict <, so the index is the first minimum among the
+// pairs searched. The mask entry is block-uniform: a skipped tile costs no
+// divergence and the barriers stay balanced. best stays BIG when every
+// tile was culled.
+__device__ __forceinline__ void h2o_cull_row_scan(
+    float4* ys, const float4* __restrict__ yg, const int* __restrict__ m,
+    int T, int tile, int P2, bool live,
+    float x0, float x1, float x2, float& best, int& best_j) {
+    best = H2O_BIG;
+    best_j = 0;
+    for (int t = 0; t < T; ++t) {
+        if (m[t] == 0) continue;
+        const int c1 = min((t + 1) * tile, P2);
+        for (int j0 = t * tile; j0 < c1; j0 += H2O_Y_STAGE) {
+            const int n = min(H2O_Y_STAGE, c1 - j0);
+            h2o_stage_y(ys, yg, j0, n);
+            __syncthreads();
+            if (live) {
+#pragma unroll 8
+                for (int k = 0; k < n; ++k) {
+                    const float d = h2o_pair_d2(x0, x1, x2, ys[k]);
+                    if (d < best) {
+                        best = d;
+                        best_j = j0 + k;
+                    }
+                }
+            }
+            __syncthreads();
+        }
+    }
+}
+
+// Writes a live row's min and dvec = x - y[best_j] (centred). A row whose
+// min is still BIG took no point (all tiles culled, or an all-invalid
+// cloud): its dvec is 0, never the offset to a FAR point.
+__device__ __forceinline__ void h2o_write_dvec(
+    float* __restrict__ d_out, float* __restrict__ dvec, size_t o,
+    const float4* __restrict__ yg, float best, int best_j,
+    float x0, float x1, float x2) {
+    float v0 = 0.f, v1 = 0.f, v2 = 0.f;
+    if (best < H2O_BIG) {
+        const float4 yj = yg[best_j];
+        v0 = __fsub_rn(x0, yj.x);
+        v1 = __fsub_rn(x1, yj.y);
+        v2 = __fsub_rn(x2, yj.z);
+    }
+    d_out[o] = best;
+    dvec[3 * o + 0] = v0;
+    dvec[3 * o + 1] = v1;
+    dvec[3 * o + 2] = v2;
 }
 
 // The body of the all-pairs h2o kernel (h2o_nn.cu; the h2o half of

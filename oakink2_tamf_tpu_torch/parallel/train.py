@@ -1,5 +1,5 @@
-"""G's train step and its optimizer (port of oakink2_tamf_tpu/parallel/train.py:39-224),
-on one device for now.
+"""The G and R train steps and their optimizer (port of
+oakink2_tamf_tpu/parallel/train.py:39-332), on one device for now.
 
 Optimizer parity (reference launch/train.py:469-479, util/net_util.py:13):
 - PER-PARAMETER gradient clip to L2 norm 0.1 (each tensor on its own, not a
@@ -13,7 +13,7 @@ Optimizer parity (reference launch/train.py:469-479, util/net_util.py:13):
   milestones into step milestones): update k runs at base_lr * gamma^(number
   of milestones <= k), as the JAX package's optax schedule does.
 
-The step: timesteps from the batch (`t`, `t_weights`: an importance
+G's step: timesteps from the batch (`t`, `t_weights`: an importance
 resampler) or uniform; the GT side of the extra loss under torch.no_grad()
 outside the loss; the diffusion loss and the extra loss on the model
 output; backward; clip, AdamW, LR step.
@@ -29,6 +29,7 @@ import torch
 from ..core import diffusion as D
 from ..core import mano as M
 from ..models import losses as LL
+from ..models.refine_r import refine_forward, sample_geometry, target_geometry
 
 # ---------------------------------------------------------------------------
 # Optimizer
@@ -174,5 +175,48 @@ def make_g_train_step(
         state.optimizer.step()
         state.step += 1
         return {k: v.detach() for k, v in metrics.items()}
+
+    return step_fn
+
+
+# ---------------------------------------------------------------------------
+# R: refiner train step
+# ---------------------------------------------------------------------------
+
+
+def make_r_train_step(
+    mano_stack: M.ManoTensors,
+    assets: LL.ContactAssets,
+    loss_cfg: LL.RefineLossConfig,
+    *,
+    backend: str = "auto",
+) -> Callable[..., dict[str, torch.Tensor]]:
+    """The R train step (JAX make_r_train_step, parallel/train.py:276-332).
+
+    step_fn(state, batch) -> metrics updates state in place: the target and
+    the sample geometry are functions of the batch alone and run under
+    torch.no_grad() (the JAX step's stop_gradient regions); only the
+    refined branch (the net, MANO of its output and the h2o kernels'
+    backward) is differentiated. Dropout draws from torch's global
+    generator. `backend` routes every h2o search (core/geometry.py)."""
+
+    def step_fn(state: TrainState, batch: dict[str, Any]) -> dict[str, torch.Tensor]:
+        net = state.model
+        net.train()
+        mask = batch["mask"]
+        with torch.no_grad():
+            tgt = target_geometry(mano_stack, batch, backend=backend, frame_mask=mask)
+            # the padded-frame closed form of the network input (valid under
+            # the zero-padding collate and adaptor contract)
+            sg = sample_geometry(mano_stack, batch, frame_mask=mask, backend=backend)
+        state.optimizer.zero_grad()
+        out = refine_forward(net, mano_stack, batch, with_target=False, sample_geom=sg,
+                             backend=backend, loss_frame_mask=mask)
+        out.update(tgt)
+        loss, terms = LL.segment_refine_loss(assets, loss_cfg, out, batch)
+        loss.backward()
+        state.optimizer.step()
+        state.step += 1
+        return {k: v.detach() for k, v in terms.items()}
 
     return step_fn

@@ -118,7 +118,8 @@ class TamfPipeline:
         b2 = dict(batch)
         # R sees G's sample zero-padded past each true length, as in the reference
         b2["sample_pose_repr"] = sample * batch["mask"][:, :, None]
-        out = refine_forward(self.refine_net, self.mano_stack, b2, loss_frame_mask=batch["mask"])
+        out = refine_forward(self.refine_net, self.mano_stack, b2, with_target=False,
+                             loss_frame_mask=batch["mask"])
         return {
             "refine_pose_repr": out["refine_pose_repr"],
             "refine_hand_verts": out["refine_hand_verts"],

@@ -126,8 +126,20 @@ def test_point2point_h2o_routes_match_jax(P2):
 
 
 def test_point2point_h2o_is_forward_only():
-    x = torch.zeros(1, 4, 3, requires_grad=True)
+    """The test's name is from before the route had a backward; what it
+    holds now is what the routed entry point still refuses: the unported
+    backends, a gradient for a shared cloud and the culled route with
+    grad_y (tests/test_torch_h2o_grad.py holds the gradients)."""
+    x = torch.zeros(2, 4, 3, requires_grad=True)
+    y = torch.zeros(1, 8, 3)
+    for backend in ("cluster", "xla"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TG.point2point_h2o(x, y, backend=backend, grad_y=False, y_group=2)
     with pytest.raises(NotImplementedError):
-        TG.point2point_h2o(x, torch.zeros(1, 8, 3))
+        TG.point2point_h2o(x, y, y_group=2)  # grad_y=True with a shared cloud
     with pytest.raises(NotImplementedError):
-        TG.point2point_h2o(x.detach(), torch.zeros(1, 8, 3), y_group=2)
+        TG.point2point_h2o(x.detach(), y, y_group=2)
+    with pytest.raises(NotImplementedError):
+        TG.point2point_h2o(x[:1], y, backend="cull", grad_y=True)
+    with pytest.raises(ValueError):
+        TG.point2point_h2o(x[:1], y, backend="nope")

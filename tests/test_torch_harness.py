@@ -17,11 +17,14 @@ import oakink2_tamf_tpu_torch
 from oakink2_tamf_tpu_torch import _device
 from oakink2_tamf_tpu_torch.ops import _build
 from oakink2_tamf_tpu_torch.ops import chamfer_cull as CU
+from oakink2_tamf_tpu_torch.ops import chamfer_h2o_bwd as HB
 from oakink2_tamf_tpu_torch.ops import chamfer_loss as CL
 from oakink2_tamf_tpu_torch.ops import chamfer_nn as NN
 from oakink2_tamf_tpu_torch.ops import chamfer_signed as CS
 
-KERNELS = (NN.KERNEL, CU.KERNEL, CS.KERNEL, CS.BWD_KERNEL, CL.KERNEL)
+KERNELS = (NN.KERNEL, CU.KERNEL, CS.KERNEL, CS.BWD_KERNEL, CL.KERNEL,
+           NN.DVEC_KERNEL, CU.DVEC_KERNEL, HB.KERNEL)
+REPO = pathlib.Path(__file__).resolve().parent.parent
 
 PKG = pathlib.Path(oakink2_tamf_tpu_torch.__file__).parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "oakink2_tamf_tpu")
@@ -206,3 +209,75 @@ def test_cuda_training_kernels_match_plain_versions():
     torch.testing.assert_close(got[1], want[1], rtol=1e-6, atol=1e-7)
     _assert_scatter_close(got[2], want[2])
     torch.testing.assert_close(got[3], want[3], rtol=1e-6, atol=1e-7)
+
+
+def test_train_r_refuses_silent_cpu_run(tmp_path, monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    from oakink2_tamf_tpu_torch.launch import train_r
+
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_r.main(["--cfg", str(REPO / "config/synthetic_smoke.yml")])
+
+
+def test_cpu_wrappers_of_the_r_kernels_launch_nothing():
+    """The dvec forwards and the h2o backward on CPU tensors run their plain
+    versions, also under autograd: values come back, the counts stay put."""
+    from oakink2_tamf_tpu_torch.core import geometry as G
+
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(size=(4, 130, 3)).astype(np.float32) * 0.05).requires_grad_(True)
+    y = torch.from_numpy(rng.normal(size=(2, 300, 3)).astype(np.float32) * 0.05)
+    before = [k.launches for k in KERNELS]
+    for backend in ("cull", "exact"):
+        G.point2point_h2o(x, y, backend=backend, grad_y=False, y_group=2).sum().backward()
+    yg = y[:1].clone().requires_grad_(True)
+    G.point2point_h2o(x[:1], yg, grad_y=True).sum().backward()
+    assert [k.launches for k in KERNELS] == before
+    assert torch.isfinite(x.grad).all() and torch.isfinite(yg.grad).all()
+
+
+@pytest.mark.cuda
+def test_cuda_r_kernels_match_plain_versions():
+    """h2o_nn_dvec (#4), h2o_cull_dvec (#3) and h2o_nn_bwd (#5) on the card
+    against their plain versions: the forwards share the per-pair function
+    (equal values and dvec on rows that took a point, BIG and 0 elsewhere);
+    gy sums in another order, held per frame: ||a_f - b_f|| <= 1e-5 ||b_f||
+    + 1e-6; gx is the same products (equal)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    _device.set_fp32_precision()
+    rng = np.random.default_rng(5)
+    G, L, P2 = 3, 8, 4096
+    x = torch.from_numpy(rng.normal(size=(G * L, 778, 3)).astype(np.float32) * 0.05).cuda()
+    y = torch.from_numpy(rng.normal(size=(G, P2, 3)).astype(np.float32) * 0.1).cuda()
+    yv = torch.ones(G, P2, dtype=torch.bool, device="cuda")
+    yv[1, 1000:] = False
+    yv[2] = False
+    xv = torch.ones(G * L, dtype=torch.bool, device="cuda")
+    xv[::3] = False
+    ops = NN.prepare(x, y, yv, L)
+    d, dvec = NN.launch_dvec(*ops, L)
+    dp, dvp = NN.plain_dvec(*ops, L)
+    assert torch.equal(d, dp) and torch.equal(dvec, dvp)
+    assert torch.equal(d, NN.launch(*ops, L)[0])
+    mask = CU.cull_mask(x, y, yv, 2048, L, xv)
+    dc, dvc = CU.launch_dvec(*ops, mask, L, 2048)
+    dcp, dvcp = CU.plain_dvec(*ops, mask, L, 2048)
+    assert torch.equal(dc, dcp) and torch.equal(dvc, dvcp)
+    ok = xv & yv.any(1).repeat_interleave(L)
+    assert torch.equal(dc[ok], d[ok]) and torch.equal(dvc[ok], dvec[ok])
+    assert bool((dc[~ok] == CU.BIG).all()) and bool((dvc[~ok] == 0).all())
+    xr = torch.randn(G * L, 778, device="cuda")
+    xr[:, ::7] = 0.0
+    for grad_y, gl in ((False, L), (True, 1)):
+        yy = y if gl == L else y.repeat_interleave(L, 0).contiguous()
+        _, idx = NN.h2o_nn(x, yy, None, gl)
+        gx, gy = HB.launch(x, yy, idx, xr, grad_y, gl)
+        px, py = HB.plain(x, yy, idx, xr, grad_y, gl)
+        assert torch.equal(gx, px)
+        if grad_y:
+            _assert_scatter_close(gy, py)
+        else:
+            assert gy is None

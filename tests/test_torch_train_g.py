@@ -287,7 +287,5 @@ def test_train_g_main_cpu_smoke_and_checkpoint(tmp_path, monkeypatch):
 def test_train_g_refuses_what_is_not_ported(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     base = ["--cfg", os.path.join(REPO, "config/synthetic_smoke.yml"), "--runtime.device", "cpu"]
-    with pytest.raises(NotImplementedError, match="target_cache"):
-        train_g.main(base + ["--train.data.cache_gt_geom", "true"])
     with pytest.raises(NotImplementedError, match="segment.py"):
         train_g.main(base + ["--data.synthetic", "false"])
