@@ -17,23 +17,42 @@ Phases (any failure exits non-zero and prints no result line):
    then time kernel and plain version at the G training shape (40960
    frames = batch 64 x 4 object slots x 160 frames), and torch.cdist with
    min/argmin both ways as the signed forward's library yardstick;
-4. a small G train step on the GPU and on the CPU with the same weights,
-   batch, t and noise, dropout 0, on both dist routes: loss and gradients
-   must agree;
-5. the training main path: G at arch_mdm_l, batch 64 x 160 frames x 4
-   objects x 8192 points, 1000-step cosine schedule, dist_impl="auto"
-   (fused), synthetic segments, one warm-up step then 3 timed steps; the
-   signed forward (GT side) and the fused loss kernel must launch once per
-   step; then the step's split on the same batch;
-6. the composed route: the same model and batch, 2 steps; the signed
+4. R kernels (#3 culled dvec, #4 all-pairs dvec, #5 h2o backward): check
+   each against its plain version on 32 frames x 778 rows x 8192 points
+   (ragged cloud, all-invalid cloud, x_valid=False frames; #5 in both
+   grad_y modes); time them at the R training shape (40960 frames against
+   8192 points for #3 and 2048 for #4; #5 at 10240 x 778 x 2048) and hold
+   them against their plain versions there too (#3/#4 on the 1/8 of the
+   frames the plain versions are timed on);
+5. small GPU-vs-CPU parity: the serving pipeline, a G train step on both
+   dist routes and an R train step on both h2o routes (same weights,
+   batch and noise, dropout 0): loss and gradients must agree;
+6. the G training main path: arch_mdm_l, batch 64 x 160 frames x 4 objects
+   x 8192 points, 1000-step cosine schedule, dist_impl="auto" (fused),
+   synthetic segments, one warm-up step then 3 timed steps; the signed
+   forward (GT side) and the fused loss kernel must launch once per step;
+   then the step's split on the same batch;
+7. the composed route: the same model and batch, 2 steps; the signed
    forward and its backward kernel must launch;
-7. the entry point: launch/train_g.main on config/synthetic_smoke.yml on
+8. the entry point: launch/train_g.main on config/synthetic_smoke.yml on
    the card (two short epochs);
-8. the serving main path, cull route: TamfPipeline at arch_mdm_l G,
+9. the gt_geom cache: train_g.main with train.data.cache_gt_geom (the
+   signed forward runs in the precompute, not in the steps), then a fresh
+   cache's cold misses computed in the loader's threads against the
+   batched precompute;
+10. the R training main path, cull route: arch_refine, batch 64 x 160
+   frames x 4 objects x 8192 points with target_h2o from TargetH2OCache,
+   one warm-up step then 3 timed steps and the step's split; #2 and #3
+   must launch once per step; then 2 steps of the all-pairs route at 2048
+   points (#4 must launch);
+11. launch/train_r.main on config/synthetic_smoke.yml on the card;
+12. autograd through point2point_h2o(grad_y=True), GPU against CPU (#1
+   forward, #5 backward);
+13. the serving main path, cull route: TamfPipeline at arch_mdm_l G,
    default R, synthetic MANO, random-init CLIP with the hash tokenizer,
    1000 DDPM steps, batch 16 x 160 frames x 4 objects x 8192 points; one
    generate of 16 segments; the culled kernel must have launched;
-9. the all-pairs route: the same at 2048 points with 50 respaced steps; the
+14. the all-pairs route: the same at 2048 points with 50 respaced steps; the
    all-pairs kernel must have launched.
 
 The line before the last is the card's name and power limit
@@ -689,6 +708,106 @@ def entry_point() -> None:
     require(CS.KERNEL.launches == 4 and CL.KERNEL.launches == 4, "train_g.main did not run the kernels")
 
 
+def gt_cache_path() -> None:
+    """train.data.cache_gt_geom on the card. First launch/train_g.main on
+    the smoke config with the cache on: the signed forward (#6) runs in the
+    cache's precompute and not in the steps, whose GT side reads the cache
+    (the fused loss kernel still launches every step). Then the cache's
+    cold-miss path: every sample of a fresh cache at the G training widths
+    (160 frames, 4 slots, 8192 points) is computed inside the loader's
+    worker threads on their current stream, and must equal the main
+    thread's batched precompute. Tolerance: |gt_o2h| and gt_h2o within
+    rtol 1e-5 / atol 1e-6 (MANO's matmuls at batch 1 and 16 may round
+    apart), at most 0.1% of the signs of gt_o2h apart (near-ties of the
+    nearest hand vertex, the signed pair's bound in
+    tests/test_torch_target_cache.py)."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from oakink2_tamf_tpu_torch.core import mano as M
+    from oakink2_tamf_tpu_torch.data.collate import SegmentCollate
+    from oakink2_tamf_tpu_torch.data.loader import DataLoader
+    from oakink2_tamf_tpu_torch.data.synthetic import SyntheticSegments
+    from oakink2_tamf_tpu_torch.data.target_cache import GTGeomCache
+    from oakink2_tamf_tpu_torch.launch import train_g
+    from oakink2_tamf_tpu_torch.models.refine_r import stack_mano_models
+    from oakink2_tamf_tpu_torch.ops import chamfer_loss as CL
+    from oakink2_tamf_tpu_torch.ops import chamfer_signed as CS
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    seen = []
+    precompute = GTGeomCache.precompute
+
+    def counted(self, **kw):
+        n = precompute(self, **kw)
+        torch.cuda.synchronize()
+        seen.append((n, CS.KERNEL.launches))
+        return n
+
+    CS.KERNEL.launches = CL.KERNEL.launches = 0
+    GTGeomCache.precompute = counted
+    try:
+        state = train_g.main(["--cfg", os.path.join(root, "config/synthetic_smoke.yml"),
+                              "--exp_id", "chip_smoke_gt_cache", "--train.data.cache_gt_geom", "true"])
+    finally:
+        GTGeomCache.precompute = precompute
+    torch.cuda.synchronize()
+    require(len(seen) == 1 and seen[0][0] == 16 and seen[0][1] >= 1,
+            f"train_g.main: gt_geom precompute {seen} (segments, nn_signed launches)")
+    require(state.step == 4 and all(torch.isfinite(p).all() for p in state.model.parameters()),
+            "train_g.main with the gt_geom cache: wrong step count or non-finite weights")
+    require(CS.KERNEL.launches == seen[0][1], f"train_g.main with the gt_geom cache: nn_signed launched "
+            f"{CS.KERNEL.launches - seen[0][1]} times in the steps")
+    require(CL.KERNEL.launches == 4, f"train_g.main with the gt_geom cache: dist_loss {CL.KERNEL.launches}")
+    print(f"train_g.main (synthetic_smoke.yml, cuda, cache_gt_geom): {seen[0][0]} segments precomputed with "
+          f"{seen[0][1]} nn_signed launches, none in the {state.step} steps; dist_loss {CL.KERNEL.launches}",
+          flush=True)
+    del state
+
+    nseg, nobj = 16, 4
+    base = SyntheticSegments(nseg, seq_len=TRAIN_L, max_nobj=nobj, n_obj_points=TRAIN_P, seed=9)
+    mano = stack_mano_models(M.synthetic_mano_model("right"), M.synthetic_mano_model("left"), "cuda")
+    collate = SegmentCollate(max_nobj=nobj, n_obj_points=TRAIN_P)
+    warm = GTGeomCache(base, mano, collate, batch_size=nseg)
+    CS.KERNEL.launches = 0
+    require(warm.precompute() == nseg, "gt_geom precompute did not compute every segment")
+    per_batch = CS.KERNEL.launches  # nn_signed launches for one computed batch
+    cold = GTGeomCache(base, mano, collate)
+    threads = set()
+    compute = cold._compute
+
+    def in_thread(batch):
+        threads.add(threading.current_thread().name)
+        return compute(batch)
+
+    cold._compute = in_thread
+    CS.KERNEL.launches = 0
+    loader = DataLoader(cold, batch_size=4, collate_fn=collate, shuffle=False, drop_last=False, num_workers=4)
+    n_batches = sum(1 for _ in loader)
+    torch.cuda.synchronize()
+    require(n_batches == nseg // 4 and len(cold._mem) == nseg, "cold-miss pass: not every sample computed")
+    require(threads and threading.main_thread().name not in threads,
+            f"cold misses were not computed in loader threads: {threads}")
+    require(per_batch >= 1 and CS.KERNEL.launches == nseg * per_batch,
+            f"{nseg} cold misses launched nn_signed {CS.KERNEL.launches} times, {per_batch} per batch")
+    err = signs = flips = 0
+    for i in range(nseg):
+        a, b = cold._mem[i], warm._mem[i]
+        for k in ("o2h", "h2o"):
+            require(a[k].shape == b[k].shape and np.all(np.isfinite(a[k])), f"cold miss {i} {k}: shape or NaN")
+            require(np.allclose(np.abs(a[k]), np.abs(b[k]), rtol=1e-5, atol=1e-6),
+                    f"cold miss {i} {k} differs from the precompute")
+            err = max(err, float(np.abs(np.abs(a[k]) - np.abs(b[k])).max()))
+        signs += a["o2h"].size
+        flips += int((np.sign(a["o2h"]) != np.sign(b["o2h"])).sum())
+    require(flips <= 1e-3 * signs, f"cold miss: {flips} of {signs} gt_o2h signs differ")
+    print(f"gt_geom cold misses ({nseg} segments x {TRAIN_L} frames x {nobj} slots x {TRAIN_P} points) in "
+          f"{len(threads)} loader threads: {CS.KERNEL.launches} nn_signed launches; equal to the batched "
+          f"precompute within tolerance (max abs err {err}, {flips} of {signs} signs apart)", flush=True)
+
+
 # ---------------------------------------------------------------------------
 # R training: kernels #3-#5, train-step parity, main path, all-pairs route,
 # entry point, the grad_y route
@@ -729,8 +848,10 @@ def check_r_kernels() -> dict[str, dict]:
     a ragged cloud, an all-invalid cloud and x_valid=False frames; then
     timed at the R training shape (40960 frames = 64 x 4 slots x 160
     against 8192 points for #3 and 2048 for #4) and #5 at 10240 x 778 x
-    2048 with y_group 1. The plain versions of #3 and #4 are timed on 1/8 of
-    the frames and scaled by 8."""
+    2048 with y_group 1, where each is held against its plain version again
+    (#3/#4 on the 1/8 of the frames their plain versions are timed on: 5120
+    frames, y_group 160). The plain versions of #3 and #4 are timed on 1/8
+    of the frames and scaled by 8."""
     import torch
 
     from oakink2_tamf_tpu_torch.ops import chamfer_cull as CU
@@ -812,10 +933,24 @@ def check_r_kernels() -> dict[str, dict]:
             plain = lambda: NN.plain_dvec(ops[0][: part[0]], ops[1][: part[1]], ops[2][: part[1]], L)  # noqa: E731
             extra = {}
         b, by = bound_ms(n_bytes, pairs)
+        # the kernel against its plain version at the main path's shapes, on
+        # the frames the plain version is timed on: live rows bit-identical
+        dk, dvk = (t[: part[0]] for t in run())
+        dp, dvp = plain()
+        live = yv.any(1).repeat_interleave(L)[: part[0]]
+        if name == "h2o_cull_dvec":
+            live = live & xv[: part[0]]
+        require(torch.equal(dk[live], dp[live]) and torch.equal(dvk[live], dvp[live]),
+                f"{name} differs from the plain version on live rows at F={part[0]} P2={P2} y_group={L}")
+        err = max((dk[live] - dp[live]).abs().max().item(), (dvk[live] - dvp[live]).abs().max().item())
+        print(f"{name} F={part[0]} P1={P1} P2={P2} y_group={L}: equal to plain on live rows "
+              f"(max abs err {err})", flush=True)
+        del dk, dvk, dp, dvp, live
         xc = NN.centred_x(ops[0], ops[2], L).reshape(TRAIN_CLOUDS, L * P1, 3)
         yc = ops[1][..., :3].contiguous()
         out[name] = dict(
-            kernel=kernel, max_abs_err=err3 if name == "h2o_cull_dvec" else err4, shape=[F, P1, P2],
+            kernel=kernel, max_abs_err=max(err, err3 if name == "h2o_cull_dvec" else err4),
+            shape=[F, P1, P2],
             ms=cuda_time_ms(run, reps=3),
             plain_ms=8 * cuda_time_ms(plain, reps=1, warmup=0),
             library_ms=cuda_time_ms(lambda: library_min_dvec(xc, yc), reps=1),
@@ -837,6 +972,14 @@ def check_r_kernels() -> dict[str, dict]:
     srt = torch.sort(idx, dim=1).values
     distinct = F + int((srt[:, 1:] != srt[:, :-1]).sum())  # the y rows the gather needs
     b5, by5 = bound_ms(x.numel() * 4 + F * P1 * 8 + distinct * 12 + F * P1 * 12 + F * P2 * 12, 0)
+    gx, gy = HB.launch(x, yy, idx, xr, True, 1)
+    px, py = HB.plain(x, yy, idx, xr, True, 1)
+    require(torch.equal(gx, px) and scatter_close(gy, py),
+            f"h2o_nn_bwd differs from the plain version at F={F} P2={P2}: gy {(gy - py).abs().max().item()}")
+    err5 = max(err5, (gy - py).abs().max().item())
+    print(f"h2o_nn_bwd F={F} P1={P1} P2={P2} y_group 1: gx equal, gy within 1e-5 per frame "
+          f"(max abs err {(gy - py).abs().max().item()})", flush=True)
+    del gx, gy, px, py
     out["h2o_nn_bwd"] = dict(
         kernel=HB.KERNEL, max_abs_err=err5, shape=[F, P1, P2],
         ms=cuda_time_ms(lambda: HB.launch(x, yy, idx, xr, True, 1), reps=10),
@@ -1219,6 +1362,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase("entry point")
     entry_point()
+    phase("gt_geom cache")
+    gt_cache_path()
     phase("R training main path (cull route)")
     r_state, r_counts, _ = r_train_main_path()
     phase("R all-pairs route")

@@ -27,6 +27,7 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -107,7 +108,8 @@ class Kernel:
         """Call the C launch function, count the launch, raise on a CUDA error."""
         lib = self.lib()
         rc = getattr(lib, self.symbol)(*args)
-        self.launches += 1
+        with _count_lock:  # wrappers also launch from the loader's threads (cache misses)
+            self.launches += 1
         if rc != 0:
             msg = lib.kernel_error_string(rc).decode()
             raise RuntimeError(f"{self.name} kernel launch failed: cuda error {rc} ({msg})")

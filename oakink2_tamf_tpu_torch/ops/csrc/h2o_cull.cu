@@ -10,10 +10,9 @@
 // Bound: floating-point work, 8 flops per pair the mask keeps. Design for
 // that bound: the h2o_nn.cu block shape (one block per frame x region, one
 // row per thread, y staged through shared memory); the block reads its mask
-// row and jumps over culled tiles. The mask entry is the same for the whole
-// block, so a skip costs no divergence and keeps the barriers balanced. A
-// row whose every tile is culled (x_valid=False frames, all-invalid clouds)
-// comes out BIG.
+// row and jumps over culled tiles (h2o_cull_row_scan, shared with
+// h2o_cull_dvec.cu; the index it keeps is dead code here). A row whose every
+// tile is culled (x_valid=False frames, all-invalid clouds) comes out BIG.
 
 #include "h2o_common.cuh"
 
@@ -32,25 +31,10 @@ h2o_cull_kernel(const float* __restrict__ x,     // [F, P1, 3]
     const int row = r * H2O_REGION_ROWS + threadIdx.x;
     float x0, x1, x2;
     const bool live = h2o_load_row(x, ctr, f, g, row, P1, x0, x1, x2);
-    const float4* yg = y + (size_t)g * P2;
-    const int* m = mask + ((size_t)f * R + r) * T;
-
-    float best = H2O_BIG;
-    for (int t = 0; t < T; ++t) {
-        if (m[t] == 0) continue;  // block-uniform
-        const int c1 = min((t + 1) * tile, P2);
-        for (int j0 = t * tile; j0 < c1; j0 += H2O_Y_STAGE) {
-            const int n = min(H2O_Y_STAGE, c1 - j0);
-            h2o_stage_y(ys, yg, j0, n);
-            __syncthreads();
-            if (live) {
-#pragma unroll 8
-                for (int k = 0; k < n; ++k)
-                    best = fminf(best, h2o_pair_d2(x0, x1, x2, ys[k]));
-            }
-            __syncthreads();
-        }
-    }
+    float best;
+    int best_j;  // unused here: h2o_cull_dvec.cu reads it
+    h2o_cull_row_scan(ys, y + (size_t)g * P2, mask + ((size_t)f * R + r) * T, T, tile, P2, live,
+                      x0, x1, x2, best, best_j);
     if (live) d_out[(size_t)f * P1 + row] = best;
 }
 

@@ -11,7 +11,7 @@
 // h2o_cull.cu block shape (one block per frame x 128-row region, one row
 // per thread, y staged through shared memory, block-uniform mask skip);
 // the minimum is kept with its index by a strict < over ascending tiles
-// (h2o_cull.cu takes fminf and keeps no index), and dvec costs one load of
+// (h2o_cull_row_scan, shared with h2o_cull.cu), and dvec costs one load of
 // y4[g, j*] per row at the end, in place of the TPU's one-hot lane sums
 // per tile. Rows that never took a point (x_valid=False frames, every tile
 // culled, all-invalid clouds) come out at BIG with dvec = 0.

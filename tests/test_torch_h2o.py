@@ -125,10 +125,29 @@ def test_point2point_h2o_routes_match_jax(P2):
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
-def test_point2point_h2o_is_forward_only():
-    """The test's name is from before the route had a backward; what it
-    holds now is what the routed entry point still refuses: the unported
-    backends, a gradient for a shared cloud and the culled route with
+def test_point2point_h2o_is_forward_only(monkeypatch):
+    """Without autograd the routed entry point stays forward only on both
+    routes: it runs the min-only searches (#1/#2), never the dvec kernels of
+    the differentiated route, and returns no graph."""
+    x, y, yv = _scene(12, F=4, P2=640, y_group=2)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a dvec kernel ran without autograd")
+
+    monkeypatch.setattr(TG.chamfer_nn, "h2o_nn_dvec", refuse)
+    monkeypatch.setattr(TG.chamfer_cull, "h2o_cull_dvec", refuse)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    for backend in ("cull", "exact"):
+        with torch.no_grad():
+            d = TG.point2point_h2o(xt, torch.from_numpy(y), torch.from_numpy(yv),
+                                   backend=backend, grad_y=False, y_group=2)
+        assert d.grad_fn is None and not d.requires_grad
+        assert torch.isfinite(d[:2]).all()  # group 0 is ragged, group 1 all-invalid
+
+
+def test_point2point_h2o_refuses_unported_backends():
+    """What the routed entry point refuses: the unported backends (ROADMAP
+    section B), a gradient for a shared cloud and the culled route with
     grad_y (tests/test_torch_h2o_grad.py holds the gradients)."""
     x = torch.zeros(2, 4, 3, requires_grad=True)
     y = torch.zeros(1, 8, 3)
