@@ -14,9 +14,10 @@ Phases (any failure exits non-zero and prints no result line):
 3. training kernels (signed pair forward and backward, fused loss): check
    each against its plain version at 8192 points and 778 rows on 32 frames,
    with a ragged cloud, an all-zero padded slot and x_valid=False frames;
-   then time kernel and plain version at the G training shape (40960
-   frames = batch 64 x 4 object slots x 160 frames), and torch.cdist with
-   min/argmin both ways as the signed forward's library yardstick;
+   then time each kernel at the G training shape (40960 frames = batch 64
+   x 4 object slots x 160 frames), its plain version on 1/8 of those
+   frames (x 8), and torch.cdist with min/argmin both ways as the signed
+   forward's library yardstick;
 4. R kernels (#3 culled dvec, #4 all-pairs dvec, #5 h2o backward): check
    each against its plain version on 32 frames x 778 rows x 8192 points
    (ragged cloud, all-invalid cloud, x_valid=False frames; #5 in both
@@ -24,35 +25,50 @@ Phases (any failure exits non-zero and prints no result line):
    8192 points for #3 and 2048 for #4; #5 at 10240 x 778 x 2048) and hold
    them against their plain versions there too (#3/#4 on the 1/8 of the
    frames the plain versions are timed on);
-5. small GPU-vs-CPU parity: the serving pipeline, a G train step on both
-   dist routes and an R train step on both h2o routes (same weights,
+5. cluster kernels (#10 h2o over candidate cells, #11 its backward, #12
+   o2h over candidate tiles, #13 its backward) on the R main path's own
+   operands (sample hands in the canonical frames of a full-width batch,
+   template permutation): each against its plain version; #10 against #1
+   (equal on rows of certified tiles, never below; the overflowed-tile
+   share is printed); #12 at k_tiles 0 against #6's o2h half; each timed
+   at 40960 frames x 778 x 8192 with the selection stage;
+6. small GPU-vs-CPU parity: the serving pipeline, a G train step on both
+   dist routes and an R train step on all three h2o routes (same weights,
    batch and noise, dropout 0): loss and gradients must agree;
-6. the G training main path: arch_mdm_l, batch 64 x 160 frames x 4 objects
+7. the G training main path: arch_mdm_l, batch 64 x 160 frames x 4 objects
    x 8192 points, 1000-step cosine schedule, dist_impl="auto" (fused),
    synthetic segments, one warm-up step then 3 timed steps; the signed
    forward (GT side) and the fused loss kernel must launch once per step;
    then the step's split on the same batch;
-7. the composed route: the same model and batch, 2 steps; the signed
+8. the composed route: the same model and batch, 2 steps; the signed
    forward and its backward kernel must launch;
-8. the entry point: launch/train_g.main on config/synthetic_smoke.yml on
+9. the entry point: launch/train_g.main on config/synthetic_smoke.yml on
    the card (two short epochs);
-9. the gt_geom cache: train_g.main with train.data.cache_gt_geom (the
+10. the gt_geom cache: train_g.main with train.data.cache_gt_geom (the
    signed forward runs in the precompute, not in the steps), then a fresh
    cache's cold misses computed in the loader's threads against the
    batched precompute;
-10. the R training main path, cull route: arch_refine, batch 64 x 160
+11. the R training main path, cull route: arch_refine, batch 64 x 160
    frames x 4 objects x 8192 points with target_h2o from TargetH2OCache,
    one warm-up step then 3 timed steps and the step's split; #2 and #3
    must launch once per step; then 2 steps of the all-pairs route at 2048
    points (#4 must launch);
-11. launch/train_r.main on config/synthetic_smoke.yml on the card;
-12. autograd through point2point_h2o(grad_y=True), GPU against CPU (#1
+12. launch/train_r.main on config/synthetic_smoke.yml on the card;
+13. the R training main path, cluster route (train.h2o_backend cluster):
+   the same model and batch shape, 3 timed steps and the split; #10 must
+   launch twice and #11 once per step, #1-#5 never; the val probe's
+   overflow count on the batch;
+14. core/geometry.point2point_signed(backend="cluster") under autograd
+   (#10, #11, #12, #13 once each) against the exact signed pair;
+15. launch/train_r.main with --train.h2o_backend cluster --train.val_freq
+   1: the val passes must log the certificate;
+16. autograd through point2point_h2o(grad_y=True), GPU against CPU (#1
    forward, #5 backward);
-13. the serving main path, cull route: TamfPipeline at arch_mdm_l G,
+17. the serving main path, cull route: TamfPipeline at arch_mdm_l G,
    default R, synthetic MANO, random-init CLIP with the hash tokenizer,
    1000 DDPM steps, batch 16 x 160 frames x 4 objects x 8192 points; one
    generate of 16 segments; the culled kernel must have launched;
-14. the all-pairs route: the same at 2048 points with 50 respaced steps; the
+18. the all-pairs route: the same at 2048 points with 50 respaced steps; the
    all-pairs kernel must have launched.
 
 The line before the last is the card's name and power limit
@@ -93,6 +109,20 @@ def cuda_time_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_timed(fn):
+    """(fn(), its ms on the card) for one run: a plain version's output is
+    checked and its time kept from the same run."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def bound_ms(n_bytes: float, n_pairs: float) -> tuple[float, str]:
@@ -330,6 +360,30 @@ def scatter_close(a, b, rtol: float = 1e-5) -> bool:
     return bool((d <= rtol * b.flatten(1).norm(dim=1) + 1e-6).all())
 
 
+def scatter_mass_close(a, b, mass, rtol: float = 1e-6) -> bool:
+    """Per frame, ||a_f - b_f|| <= rtol ||mass_f|| + 1e-6, with mass the
+    same scatter of the terms' absolute values: the check for an o2h-side
+    gradient, where thousands of object points with cotangents of either
+    sign land on the few hand rows nearest the object. Two float32 sums of
+    the same terms in other orders differ by a few ulps of the sum of the
+    terms' magnitudes, which there is orders of magnitude above the
+    cancelled sum itself."""
+    d = (a - b).flatten(1).norm(dim=1)
+    return bool((d <= rtol * mass.flatten(1).norm(dim=1) + 1e-6).all())
+
+
+def o2h_mass(x, y, o2h_i, yc):
+    """[F, P1, 3]: the scatter of |yc_j (y_j - x_{o2h_i[j]})| onto the rows
+    (one cloud per frame): the magnitude that #13's and #7's o2h-side
+    atomics sum."""
+    import torch
+
+    F, P1, _ = x.shape
+    flat = (torch.arange(F, device=x.device)[:, None] * P1 + o2h_i.long()).reshape(-1)
+    u = (yc[..., None] * (y - x.reshape(-1, 3)[flat].reshape(y.shape))).abs()
+    return torch.zeros((F * P1, 3), device=x.device).index_add_(0, flat, u.reshape(-1, 3)).reshape(x.shape)
+
+
 def training_scene(G: int, L: int, seed: int, P2: int = TRAIN_P, P1: int = 778):
     """Operands of the training kernels: kernel_inputs' hand clusters near
     spatially sorted clouds, unit normals, GT fields of hand scale and
@@ -437,10 +491,14 @@ def check_training_kernels() -> dict[str, dict]:
     b, by = bound_ms(n_bytes, pairs)
     fwd = CS.launch(*ops, L)
     xc = NN.centred_x(ops[0], ops[3], L).reshape(TRAIN_CLOUDS, L * P1, 3)
+    # the plain versions are timed on 1/8 of the frames (clouds) and scaled
+    # by 8, as the R kernels' are: a full-size plain run takes ~33 s each
+    f8, g8 = F // 8, TRAIN_CLOUDS // 8
     out["nn_signed"] = dict(
         kernel=CS.KERNEL, max_abs_err=err6, shape=[F, P1, P2],
         ms=cuda_time_ms(lambda: CS.launch(*ops, L), reps=3),
-        plain_ms=cuda_time_ms(lambda: CS.plain(*ops, L), reps=1, warmup=0),
+        plain_ms=8 * cuda_time_ms(lambda: CS.plain(ops[0][:f8], ops[1][:f8], ops[2][:g8], ops[3][:g8], L),
+                                  reps=1, warmup=0),
         library_ms=cuda_time_ms(lambda: library_signed(xc, ops[2][..., :3].contiguous(), L, P1), reps=1),
         bound_ms=b, bound_by=by,
     )
@@ -465,14 +523,17 @@ def check_training_kernels() -> dict[str, dict]:
     out["dist_loss"] = dict(
         kernel=CL.KERNEL, max_abs_err=err8, shape=[F, P1, P2], live_frames=live,
         ms=cuda_time_ms(lambda: CL.launch(*lops, L), reps=3),
-        plain_ms=cuda_time_ms(lambda: CL.plain(*lops, L), reps=1, warmup=0),
+        plain_ms=8 * cuda_time_ms(lambda: CL.plain(*(t[:f8] for t in lops[:2]), *(t[:g8] for t in lops[2:4]),
+                                                   lops[4][:f8], lops[5][:f8], lops[6], lops[7][:f8], L),
+                                  reps=1, warmup=0),
         library_ms=None, bound_ms=b8, bound_by=by8,
     )
     for name, o in ((k, out[k]) for k in ("nn_signed", "nn_signed_bwd", "dist_loss")):
         lib = "none" if o["library_ms"] is None else f"{o['library_ms']:.3f}"
         print(f"{name} F={F} P1={P1} P2={P2}: ms={o['ms']:.4f} plain_ms={o['plain_ms']:.3f} "
               f"library_ms={lib} bound_ms={o['bound_ms']:.4f} ({o['bound_by']})", flush=True)
-    print(f"dist_loss live frames {live} of {F}", flush=True)
+    print(f"dist_loss live frames {live} of {F}; plain_ms of nn_signed and dist_loss: 8 x the time on 1/8 "
+          "of the frames", flush=True)
     del x, n, y, xv, og, hg, vw, ops, lops
     torch.cuda.empty_cache()
     return out
@@ -1312,6 +1373,516 @@ def grad_y_path():
     return counts
 
 
+# ---------------------------------------------------------------------------
+# The cluster route: kernels #10-#13, R train-step parity, the R main path,
+# the signed entry point, train_r.main with the certificate
+# ---------------------------------------------------------------------------
+
+CLUSTER_KERNELS = ("h2o_topk", "h2o_topk_bwd", "o2h_topk", "o2h_topk_bwd")
+
+
+def _cluster_kernel_objects() -> dict:
+    from oakink2_tamf_tpu_torch.ops import chamfer_cluster as CC
+
+    return dict(zip(CLUSTER_KERNELS, CC.KERNELS))
+
+
+def cluster_operands(seed: int):
+    """The R main path's h2o operands at full width: the sample hand of a
+    synthetic batch (64 samples x 160 frames, 4 object slots, 8192 points)
+    moved into each object's canonical frame -> (x [40960, 778, 3],
+    y [256, 8192, 3], y_valid [256, 8192] (padded slots all-invalid), the
+    template permutation, normals [40960, 778, 3])."""
+    import torch
+
+    from oakink2_tamf_tpu_torch.core import transforms as T
+    from oakink2_tamf_tpu_torch.models import refine_r as R
+
+    dev = torch.device("cuda")
+    mano, _ = _r_geometry(dev)
+    db, _ = _r_batch(TRAIN_BS, TRAIN_L, TRAIN_NOBJ, TRAIN_P, seed, mano, dev, cache=False)
+    with torch.no_grad():
+        verts, _, normals = R.batch_recover_mano(mano, db["sample_pose_repr"], db["shape"], db["hand_side"])
+        x, y = R._canonical_frame_operands(verts, db["obj_traj"], db["obj_points"])
+        rot = T.tslrot6d_to_transf(db["obj_traj"])[..., :3, :3]  # the normals turn with the hand
+        n = torch.einsum("bolck,blvc->bolvk", rot, normals).reshape(x.shape)
+    yv = db["obj_mask"].reshape(-1, 1).expand(-1, TRAIN_P).contiguous()
+    return x.contiguous(), y.contiguous(), yv, mano.template_perm, n.contiguous()
+
+
+def library_min_idx(xc, yc, groups: int = 4):
+    """#10/#12's library yardstick: torch.cdist(x, y).min(-1) (values and
+    indices) over `groups` clouds per call."""
+    import torch
+
+    return [torch.cdist(xc[g : g + groups], yc[g : g + groups]).min(-1) for g in range(0, xc.shape[0], groups)]
+
+
+def library_gather(x, y, idx, xr, y_group: int):
+    """#11's yardstick without grad_y: a gather of each row's point, times
+    the cotangent row."""
+    import torch
+
+    F, P1, _ = x.shape
+    P2 = y.shape[1]
+    flat = ((torch.arange(F, device=x.device) // y_group)[:, None] * P2 + idx.long()).reshape(-1)
+    return xr[..., None] * (x - y.reshape(-1, 3)[flat].reshape(F, P1, 3))
+
+
+def library_o2h_bwd(x, y, o2h_i, yc):
+    """#13's yardstick: a gather of each point's row, then index_add_ into
+    gx (one cloud per frame)."""
+    import torch
+
+    F, P1, _ = x.shape
+    flat = (torch.arange(F, device=x.device)[:, None] * P1 + o2h_i.long()).reshape(-1)
+    u = yc[..., None] * (y - x.reshape(-1, 3)[flat].reshape(y.shape))
+    return torch.zeros((F * P1, 3), device=x.device).index_add_(0, flat, -u.reshape(-1, 3)), u
+
+
+def check_cluster_kernels() -> dict[str, dict]:
+    """#10 h2o_topk, #11 h2o_topk_bwd, #12 o2h_topk and #13 o2h_topk_bwd on
+    the R main path's own operands (sample hands in the canonical frames of
+    a full-width synthetic batch, template permutation, padded slots
+    all-invalid):
+    - #10 against its plain version on the 5120 frames (y_group 160) its
+      plain version is timed on: values and indices equal; against #1 on
+      all 40960 frames: equal on rows of tiles whose certificate is clear,
+      never below elsewhere (the overflowed-tile share is reported);
+    - #11 without grad_y at y_group 160 (gx equal to the plain version) and
+      with grad_y at 10240 frames x 778 x 2048 per-frame clouds (gx equal,
+      gy within 1e-5 per frame);
+    - #12 and #13 on 640 frames x 778 x 8192 per-frame clouds at k_tiles 0
+      and 4: #12 equal to its plain version, and at k_tiles 0 to #6's o2h
+      half; #13's gx within 1e-6 of its terms' magnitudes per frame
+      (scatter_mass_close), gy equal;
+    - each timed at the R training shape, 40960 frames x 778 rows x 8192
+      points (y_group 160 for #10/#11, per-frame clouds for #12/#13), with
+      the selection stage, the plain versions on 1/8 of the frames (x 8)
+      and the library yardsticks."""
+    import torch
+
+    from oakink2_tamf_tpu_torch.ops import chamfer_cluster as CC
+    from oakink2_tamf_tpu_torch.ops import chamfer_h2o_bwd as HB
+    from oakink2_tamf_tpu_torch.ops import chamfer_nn as NN
+    from oakink2_tamf_tpu_torch.ops import chamfer_signed as CS
+
+    out = {}
+    L = TRAIN_L
+    x, y, yv, perm, nrm = cluster_operands(seed=13)
+    F, P1, _ = x.shape
+    G, P2 = y.shape[:2]
+    part = (F // 8, G // 8)
+    xp, xs, y4, ctr = CC._prepare(x, y, yv, L, perm)
+
+    def select():
+        return CC.h2o_candidates(x, y, yv, x_perm=perm, y_group=L)
+
+    cidx, ovf = select()
+    T, K = cidx.shape[1:]
+    d, idx = CC.launch_h2o_topk(xs, y4, ctr, cidx, L)
+    torch.cuda.synchronize()
+    (dp, ip), plain10_ms = cuda_timed(
+        lambda: CC.plain_h2o_topk(xs[: part[0]], y4[: part[1]], ctr[: part[1]], cidx[: part[0]], L))
+    require(torch.equal(d[: part[0]], dp) and torch.equal(idx[: part[0]], ip),
+            f"h2o_topk differs from its plain version at F={part[0]} P2={P2} y_group={L}")
+    err10 = (d[: part[0]] - dp).abs().max().item()
+    del dp, ip
+    da, _ = NN.launch(xs, y4, ctr, L)
+    clear = ~ovf[:, torch.arange(P1, device=x.device) // CC.S_CELL]  # rows of certified tiles
+    require(torch.equal(d[clear], da[clear]), "h2o_topk and h2o_nn differ on rows of certified tiles")
+    require(bool((d >= da).all()), "h2o_topk is below the exact minimum somewhere")
+    share = ovf.float().mean().item()
+    over = d[~clear] - da[~clear]
+    print(f"h2o_topk F={F} P1={P1} P2={P2} y_group={L} K={K}: equal to plain on {part[0]} frames "
+          f"(max abs err {err10}); equal to h2o_nn on rows of certified tiles, never below; overflowed "
+          f"tiles {int(ovf.sum())} of {ovf.numel()} ({share:.4f}), rows above the exact value "
+          f"{int((over > 0).sum())} (max {over.max().item() if over.numel() else 0.0} m^2)", flush=True)
+    del da, clear, over
+    pairs10 = float(F * P1 * K * CC.S_CELL)
+    b10, by10 = bound_ms(xs.numel() * 4 + y4.numel() * 4 + cidx.numel() * 4 + F * P1 * 8, pairs10)
+    xc = NN.centred_x(xs, ctr, L).reshape(G, L * P1, 3)
+    yc = y4[..., :3].contiguous()
+    out["h2o_topk"] = dict(
+        kernel=CC.H2O_KERNEL, max_abs_err=err10, shape=[F, P1, P2], K=K, overflow_share=share,
+        ms=cuda_time_ms(lambda: CC.launch_h2o_topk(xs, y4, ctr, cidx, L), reps=5),
+        plain_ms=8 * plain10_ms,
+        library_ms=cuda_time_ms(lambda: library_min_idx(xc, yc), reps=1),
+        selection_ms=cuda_time_ms(select, reps=3),
+        bound_ms=b10, bound_by=by10,
+    )
+    del xc, yc
+
+    # --- #11: nogy at the main path's shape, grad_y on per-frame clouds ----
+    ii = xp.unapply(idx)  # the caller's row order, as the autograd.Function saves it
+    xr = torch.randn(F, P1, device="cuda")
+    xr[:, ::7] = 0.0
+    gx, _ = CC.h2o_topk_backward(x, y, ii, xr, False, L)
+    px, _ = HB.plain(x, y, ii, xr, False, L)
+    require(torch.equal(gx, px), f"h2o_topk_bwd (nogy, y_group {L}) differs from its plain version")
+    del gx, px
+    xg, yg, yvg, _, _ = kernel_inputs(R_ALL_PAIRS_P, G=64, L=L, seed=14)
+    yg, yvg = yg.repeat_interleave(L, 0).contiguous(), yvg.repeat_interleave(L, 0)
+    _, ig = CC.h2o_cluster_forward(xg, yg, yvg)
+    xrg = torch.randn(xg.shape[:2], device="cuda")
+    gx, gy = CC.h2o_topk_backward(xg, yg, ig, xrg, True, 1)
+    px, py = HB.plain(xg, yg, ig, xrg, True, 1)
+    require(torch.equal(gx, px) and scatter_close(gy, py),
+            f"h2o_topk_bwd (grad_y) differs from its plain version: gy {(gy - py).abs().max().item()}")
+    err11 = (gy - py).abs().max().item()
+    print(f"h2o_topk_bwd nogy (F={F}, y_group {L}): gx equal to plain; grad_y (F={xg.shape[0]}, "
+          f"P2={R_ALL_PAIRS_P}): gx equal, gy within 1e-5 per frame (max abs err {err11})", flush=True)
+    del xg, yg, yvg, ig, xrg, gx, gy, px, py
+    rows = torch.unique((torch.arange(F, device=x.device) // L)[:, None] * P2 + ii.long()).numel()
+    b11, by11 = bound_ms(x.numel() * 4 + F * P1 * 8 + rows * 12 + F * P1 * 12, 0)
+    out["h2o_topk_bwd"] = dict(
+        kernel=CC.H2O_BWD_KERNEL, max_abs_err=err11, shape=[F, P1, P2],
+        ms=cuda_time_ms(lambda: CC.h2o_topk_backward(x, y, ii, xr, False, L), reps=10),
+        plain_ms=cuda_time_ms(lambda: HB.plain(x, y, ii, xr, False, L), reps=3),
+        library_ms=cuda_time_ms(lambda: library_gather(x, y, ii, xr, L), reps=3),
+        bound_ms=b11, bound_by=by11,
+    )
+    del d, idx, ii, xr, cidx, ovf, xs, y4, ctr
+    torch.cuda.empty_cache()
+
+    # --- #12 / #13 on 640 frames with per-frame clouds, k_tiles 0 and 4 ----
+    f6 = 4 * L
+    x6, n6 = x[:f6].contiguous(), nrm[:f6].contiguous()
+    y6, yv6 = y[:4].repeat_interleave(L, 0).contiguous(), yv[:4].repeat_interleave(L, 0)
+    xp6, xs6, y46, ctr6 = CC._prepare(x6, y6, yv6, 1, perm)
+    ns6 = xp6.apply(n6).contiguous()
+    xc6, xv6, yc6, yvp6 = CC.selection_operands(xs6, y6, yv6, ctr6, 1)
+    err12 = err13 = 0.0
+    for kt in (0, 4):
+        cidx_y, ovf_y = CC._o2h_candidates(xc6, xv6, yc6, yvp6, kt)
+        got = CC.launch_o2h_topk(xs6, ns6, y46, ctr6, cidx_y)
+        torch.cuda.synchronize()
+        want = CC.plain_o2h_topk(xs6, ns6, y46, ctr6, cidx_y)
+        for nm, a, b in zip(("o2h_d", "o2h_i", "o2h_dot"), got, want):
+            require(torch.equal(a, b), f"o2h_topk {nm} (k_tiles {kt}) differs from its plain version")
+        if kt == 0:
+            sig = CS.launch(xs6, ns6, y46, ctr6, 1)
+            for nm, a, b in zip(("o2h_d", "o2h_i", "o2h_dot"), got, sig[2:]):
+                require(torch.equal(a, b), f"o2h_topk {nm} at k_tiles 0 differs from nn_signed's o2h half")
+            del sig
+        o2h_i = xp6.to_original(torch.clamp(got[1], 0, P1 - 1)).to(torch.int32)
+        ycot = torch.randn(f6, P2, device="cuda") * yv6
+        mass = o2h_mass(x6, y6, o2h_i, ycot)
+        for grad_y in (False, True):
+            gx, gy = CC.launch_o2h_backward(x6, y6, o2h_i, ycot, grad_y)
+            px, py = CC.plain_o2h_backward(x6, y6, o2h_i, ycot, grad_y)
+            d = (gx - px).flatten(1).norm(dim=1)
+            rel = (d / (px.flatten(1).norm(dim=1) + 1e-12)).max().item()
+            rel_mass = (d / (mass.flatten(1).norm(dim=1) + 1e-12)).max().item()
+            require(scatter_mass_close(gx, px, mass), f"o2h_topk_bwd gx (k_tiles {kt}, grad_y {grad_y}) vs plain: "
+                    f"worst frame {rel:.3e} of its norm, {rel_mass:.3e} of its terms' magnitudes")
+            require(not grad_y or torch.equal(gy, py), f"o2h_topk_bwd gy (k_tiles {kt}) differs from plain")
+            err13 = max(err13, (gx - px).abs().max().item())
+        print(f"o2h_topk / o2h_topk_bwd F={f6} P1={P1} P2={P2} k_tiles={kt} (o2h overflow "
+              f"{int(ovf_y.sum())} of {ovf_y.numel()} cells): #12 equal to plain"
+              + (" and to nn_signed's o2h half" if kt == 0 else "")
+              + f"; #13 gx within 1e-6 of its terms' magnitudes per frame (max abs err {err13}; worst frame "
+              f"{rel:.3e} of its norm, {rel_mass:.3e} of the magnitudes), gy equal", flush=True)
+    del x6, n6, y6, yv6, xs6, y46, ctr6, ns6, xc6, xv6, yc6, yvp6, got, want, gx, gy, px, py, ycot
+    torch.cuda.empty_cache()
+
+    # --- #12 / #13 timed at the R training shape, per-frame clouds --------
+    yF, yvF = y.repeat_interleave(L, 0).contiguous(), yv.repeat_interleave(L, 0)
+    xpF, xsF, y4F, ctrF = CC._prepare(x, yF, yvF, 1, perm)
+    nsF = xpF.apply(nrm).contiguous()
+    del yvF
+    C = y4F.shape[1] // CC.S_CELL
+    cidx_y = torch.arange(T, dtype=torch.int32, device=x.device).expand(F, C, T).contiguous()
+    o2h = CC.launch_o2h_topk(xsF, nsF, y4F, ctrF, cidx_y)
+    sl = slice(0, part[0])
+    want, plain12_ms = cuda_timed(lambda: CC.plain_o2h_topk(xsF[sl], nsF[sl], y4F[sl], ctrF[sl], cidx_y[sl]))
+    for nm, a, b in zip(("o2h_d", "o2h_i", "o2h_dot"), o2h, want):
+        require(torch.equal(a[sl], b), f"o2h_topk {nm} differs from its plain version at F={part[0]} P2={P2}")
+    del want
+    b12, by12 = bound_ms(xsF.numel() * 8 + y4F.numel() * 4 + cidx_y.numel() * 4 + F * P2 * 12,
+                         float(F * P2 * P1))
+    xcF = NN.centred_x(xsF, ctrF, 1)
+    ycF = y4F[..., :3]
+    out["o2h_topk"] = dict(
+        kernel=CC.O2H_KERNEL, max_abs_err=err12, shape=[F, P1, P2],
+        ms=cuda_time_ms(lambda: CC.launch_o2h_topk(xsF, nsF, y4F, ctrF, cidx_y), reps=3),
+        plain_ms=8 * plain12_ms,
+        library_ms=cuda_time_ms(lambda: library_min_idx(ycF, xcF, groups=256), reps=1),
+        bound_ms=b12, bound_by=by12,
+    )
+    del xcF, ycF, xsF, nsF, y4F, ctrF, cidx_y
+    o2h_i = xpF.to_original(torch.clamp(o2h[1], 0, P1 - 1)).to(torch.int32)
+    del o2h
+    torch.cuda.empty_cache()
+    ycot = torch.randn(F, P2, device="cuda") * yv.repeat_interleave(L, 0)
+    srt = torch.sort(o2h_i, dim=1).values
+    rows = F + int((srt[:, 1:] != srt[:, :-1]).sum())  # the x rows the gather needs
+    del srt
+    b13, by13 = bound_ms(F * P2 * 8 + yF.numel() * 4 + rows * 12 + F * P1 * 12, 0)
+    out["o2h_topk_bwd"] = dict(
+        kernel=CC.O2H_BWD_KERNEL, max_abs_err=err13, shape=[F, P1, P2],
+        ms=cuda_time_ms(lambda: CC.launch_o2h_backward(x, yF, o2h_i, ycot, False), reps=5),
+        plain_ms=cuda_time_ms(lambda: CC.plain_o2h_backward(x, yF, o2h_i, ycot, False), reps=1),
+        library_ms=cuda_time_ms(lambda: library_o2h_bwd(x, yF, o2h_i, ycot), reps=1),
+        bound_ms=b13, bound_by=by13,
+    )
+    for name in CLUSTER_KERNELS:
+        o = out[name]
+        extra = f" selection_ms={o['selection_ms']:.3f}" if "selection_ms" in o else ""
+        print(f"{name} F={F} P1={P1} P2={P2}: ms={o['ms']:.4f} plain_ms={o['plain_ms']:.3f} "
+              f"library_ms={o['library_ms']:.3f} bound_ms={o['bound_ms']:.4f} ({o['bound_by']}){extra}",
+              flush=True)
+    print("plain_ms of h2o_topk and o2h_topk: 8 x the time on 1/8 of the frames", flush=True)
+    del x, y, yv, nrm, yF, o2h_i, ycot
+    torch.cuda.empty_cache()
+    return out
+
+
+def small_r_cluster_parity() -> None:
+    """A small R train step on the cluster route, GPU (kernels #10, #11)
+    against CPU (plain versions), as small_r_train_parity holds the other
+    routes: loss rtol 1e-4, each gradient within 2e-3 of its norm."""
+    import torch
+
+    from oakink2_tamf_tpu_torch.models.refine_r import RefineConfig
+
+    cfg = RefineConfig(latent_dim=32, ff_size=64, num_layers=1, num_heads=4, dropout=0.0)
+    kernels = {**_r_kernel_objects(), **_cluster_kernel_objects()}
+    res = {}
+    for dev in ("cuda", "cpu"):
+        state, step, mano, _ = _r_training(torch.device(dev), cfg, "cluster")
+        db, _ = _r_batch(4, 16, 2, 512, 5, mano, torch.device(dev), cache=False)
+        _zero_counts(kernels)
+        m = step(state, db)
+        if dev == "cuda":
+            counts = {n: k.launches for n, k in kernels.items()}
+            require(counts["h2o_topk"] == 3 and counts["h2o_topk_bwd"] == 1,
+                    f"small R step (cluster): launches {counts}")
+            require(all(counts[n] == 0 for n in R_KERNELS), f"small R step (cluster): an exact kernel ran {counts}")
+        res[dev] = (float(m["loss"]), {k: p.grad.cpu() for k, p in state.model.named_parameters()})
+    la, lb = res["cuda"][0], res["cpu"][0]
+    require(abs(la - lb) <= 1e-4 * abs(lb), f"R train step cluster: GPU loss {la} vs CPU {lb}")
+    worst = 0.0
+    for k, gb in res["cpu"][1].items():
+        dd = (res["cuda"][1][k] - gb).norm().item()
+        require(dd <= 2e-3 * gb.norm().item() + 1e-6, f"R train step cluster: grad {k} differs by {dd}")
+        worst = max(worst, dd / (gb.norm().item() + 1e-12))
+    print(f"small R train step (cluster): GPU (kernels) vs CPU (plain) loss {la:.6f} / {lb:.6f}, "
+          f"worst relative grad diff {worst:.2e}", flush=True)
+
+
+def r_cluster_main_path():
+    """R training at full width on the cluster route (train.h2o_backend
+    cluster): arch_refine (dropout 0.1), batch 64 x 160 frames x 4 objects
+    x 8192 points, target_h2o from TargetH2OCache, the Gaussian-perturb
+    adaptor; one warm-up step, then 3 timed steps with the counts set to 0
+    just before; the step's split on the same batch; the val probe's
+    overflow count on the batch."""
+    import torch
+
+    from oakink2_tamf_tpu_torch.launch import train_r
+    from oakink2_tamf_tpu_torch.models import losses as LL
+    from oakink2_tamf_tpu_torch.models import refine_r as R
+    from oakink2_tamf_tpu_torch.ops import chamfer_cluster as CC
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    state, step, mano, assets = _r_training(dev, R.RefineConfig(), "cluster")
+    db, pre = _r_batch(TRAIN_BS, TRAIN_L, TRAIN_NOBJ, TRAIN_P, 11, mano, dev)
+    torch.cuda.synchronize()
+    print(f"R cluster main path: model + batch {time.perf_counter() - t0:.2f} s (cache precompute "
+          f"{pre:.3f} s)", flush=True)
+    t0 = time.perf_counter()
+    step(state, db)
+    torch.cuda.synchronize()
+    print(f"R cluster main path: warm-up step {time.perf_counter() - t0:.3f} s", flush=True)
+
+    before = [p.detach().clone() for p in state.model.parameters()]
+    kernels = {**_r_kernel_objects(), **_cluster_kernel_objects()}
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(kernels)
+    times, losses = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        m = step(state, db)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    counts = {n: k.launches for n, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_s = sum(times) / len(times)
+    print(f"R main path (cluster route): steps {[round(t, 4) for t in times]} s, mean {step_s:.4f} s = "
+          f"{TRAIN_BS / step_s:.3f} samples/s; losses {losses}; peak memory {peak:.2f} GiB; "
+          f"launches {counts}", flush=True)
+    require(all(v == v and abs(v) < float("inf") for v in losses), "R cluster: non-finite training loss")
+    require(any(not torch.equal(a, b) for a, b in zip(before, state.model.parameters())),
+            "R cluster: parameters unchanged")
+    require(counts["h2o_topk"] == 6, f"R cluster: h2o_topk launched {counts['h2o_topk']} times in 3 steps")
+    require(counts["h2o_topk_bwd"] == 3, f"R cluster: h2o_topk_bwd launched {counts['h2o_topk_bwd']} times")
+    require(all(counts[n] == 0 for n in R_KERNELS), f"R cluster: an exact h2o kernel launched: {counts}")
+    del before
+
+    # where the step's time goes, each piece alone on the same batch
+    net, mask, perm = state.model, db["mask"], mano.template_perm
+    cond = {k: db[k] for k in ("hand_side", "shape", "obj_embedding", "obj_traj", "obj_mask")}
+    with torch.no_grad():
+        sg = R.sample_geometry(mano, db, frame_mask=mask, backend="cluster")
+        res = R.refine_forward(net, mano, db, with_target=False, sample_geom=sg, loss_frame_mask=mask,
+                               backend="cluster")
+        s_verts = sg["sample_hand_verts"]
+        r_verts = res["refine_hand_verts"]
+        x, y = R._canonical_frame_operands(s_verts, db["obj_traj"], db["obj_points"])
+        yv = db["obj_mask"].reshape(-1, 1).expand(-1, TRAIN_P)
+        xp, xs, y4, ctr = CC._prepare(x, y, yv, TRAIN_L, perm)
+        cidx, _ = CC.h2o_candidates(x, y, yv, x_perm=perm, y_group=TRAIN_L)
+        _, idx = CC.h2o_cluster_forward(x, y, yv, x_perm=perm, y_group=TRAIN_L)
+    r_pose = res["refine_pose_repr"].detach()
+    xr = torch.randn(x.shape[:2], device=dev)
+
+    def sample_mano():
+        with torch.no_grad():
+            R.batch_recover_mano(mano, db["sample_pose_repr"], db["shape"], db["hand_side"])
+
+    def sample_h2o():
+        with torch.no_grad():
+            R.multi_object_h2o_dist(s_verts, db["obj_traj"], db["obj_points"], db["obj_mask"],
+                                    x_perm=perm, frame_mask=mask, backend="cluster")
+
+    def r_fwd_bwd():
+        net.zero_grad(set_to_none=True)
+        net(db["sample_pose_repr"], sg["sample_h2o_dist"], cond).square().mean().backward()
+
+    def refined_mano():
+        v, j, _ = R.batch_recover_mano(mano, r_pose.clone().requires_grad_(True), db["shape"], db["hand_side"])
+        (v.sum() + j.sum()).backward()
+
+    def refined_h2o():
+        h = R.multi_object_h2o_dist(r_verts.clone().requires_grad_(True), db["obj_traj"], db["obj_points"],
+                                    db["obj_mask"], x_perm=perm, frame_mask=mask, backend="cluster")
+        (h * mask[:, :, None]).sum().backward()
+
+    split = {
+        "sample MANO with normals (no grad)": cuda_time_ms(sample_mano, reps=3),
+        "sample h2o (selection + h2o_topk, no grad)": cuda_time_ms(sample_h2o, reps=3),
+        "selection stage alone (runs twice per step)": cuda_time_ms(
+            lambda: CC.h2o_candidates(x, y, yv, x_perm=perm, y_group=TRAIN_L), reps=3),
+        "h2o_topk alone (runs twice per step)": cuda_time_ms(
+            lambda: CC.launch_h2o_topk(xs, y4, ctr, cidx, TRAIN_L), reps=5),
+        "R forward+backward": cuda_time_ms(r_fwd_bwd, reps=3),
+        "refined MANO with normals forward+backward": cuda_time_ms(refined_mano, reps=3),
+        "refined h2o (selection + h2o_topk + h2o_topk_bwd) forward+backward": cuda_time_ms(refined_h2o, reps=3),
+        "h2o_topk_bwd alone": cuda_time_ms(
+            lambda: CC.h2o_topk_backward(x, y, idx, xr, False, TRAIN_L), reps=10),
+        "optimizer (clip + AdamW + LR)": cuda_time_ms(state.optimizer.step, reps=3),
+    }
+    print("R cluster step split (ms, each alone on the same batch): "
+          + "; ".join(f"{k} {v:.3f}" for k, v in split.items()), flush=True)
+    probe = train_r.make_overflow_probe(mano, backend="cluster")
+    count = int(probe(db))
+    tiles = int(db["obj_mask"].sum()) * TRAIN_L * cidx.shape[1]
+    print(f"R cluster main path: val probe on the batch: {count} overflowed x tiles of {tiles} "
+          f"({count / max(tiles, 1):.4f}) in the real object slots", flush=True)
+    del db, sg, res, s_verts, r_verts, r_pose, x, y, yv, xs, y4, ctr, cidx, idx, xr
+    torch.cuda.empty_cache()
+    return counts, step_s
+
+
+def signed_cluster_entry_point():
+    """core/geometry.point2point_signed(backend="cluster") under autograd on
+    640 frames x 778 x 8192 per-frame clouds of the main path's operands
+    (normals, grad_y False), the counts set to 0 just before: #10 and #12
+    forward, #11 and #13 backward, once each. Against the exact signed pair
+    (#6/#7) on the same operands: y2x equal (k_tiles 0 searches every
+    tile); x2y equal and gx within 1e-6 of its terms' magnitudes
+    (scatter_mass_close) on frames whose h2o certificate is clear."""
+    import torch
+
+    from oakink2_tamf_tpu_torch.core import geometry as TG
+    from oakink2_tamf_tpu_torch.ops import chamfer_cluster as CC
+    from oakink2_tamf_tpu_torch.ops import chamfer_signed as CS
+
+    x, y, yv, perm, nrm = cluster_operands(seed=15)
+    f6 = 4 * TRAIN_L
+    x, nrm = x[:f6].contiguous(), nrm[:f6].contiguous()
+    y, yv = y[:4].repeat_interleave(TRAIN_L, 0).contiguous(), yv[:4].repeat_interleave(TRAIN_L, 0)
+    rng = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.randn(y.shape[:2], device="cuda", generator=rng)
+    b = torch.randn(x.shape[:2], device="cuda", generator=rng)
+    kernels = _cluster_kernel_objects()
+    res = {}
+    for backend in ("cluster", "auto"):
+        xt = x.clone().requires_grad_(True)
+        if backend == "cluster":
+            _zero_counts(kernels)
+        y2x, x2y, _ = TG.point2point_signed(xt, y, nrm, yv, backend=backend, x_perm=perm, grad_y=False)
+        ((a * y2x).sum() + (b * x2y).sum()).backward()
+        torch.cuda.synchronize()
+        if backend == "cluster":
+            counts = {n: k.launches for n, k in kernels.items()}
+        res[backend] = (y2x.detach(), x2y.detach(), xt.grad)
+    require(all(v == 1 for v in counts.values()), f"signed cluster entry point: launches {counts}")
+    ovf_h, ovf_o = CC.signed_cluster_overflow(x, y, yv, x_perm=perm)
+    ok = ovf_h == 0
+    (cy, cx, cg), (ey, ex, eg) = res["cluster"], res["auto"]
+    require(torch.equal(cy, ey), "signed cluster: y2x differs from the exact signed pair")
+    require(bool(ok.any()) and torch.equal(cx[ok], ex[ok]), "signed cluster: x2y differs on certified frames")
+    # the o2h side's terms: cotangent a times sign over y2x (the exact pair's indices)
+    o2h_i = CS.nn_signed(x, y, nrm, yv, 1)[3]
+    sign = torch.where(ey != 0, torch.sign(ey), 0.0)
+    mass = o2h_mass(x, y, o2h_i, a * sign / torch.clamp_min(ey.abs(), CS.DIST_EPS)) + eg.abs()
+    require(scatter_mass_close(cg[ok], eg[ok], mass[ok]), f"signed cluster: gx differs on certified frames by "
+            f"{(cg - eg)[ok].abs().max().item()}")
+    print(f"signed cluster entry point F={f6} P2={TRAIN_P}: launches {counts}; y2x equal to the exact pair, "
+          f"x2y and gx on the {int(ok.sum())} of {f6} frames whose certificate is clear (o2h overflow "
+          f"{int(ovf_o.sum())})", flush=True)
+    return counts
+
+
+def r_cluster_entry_point() -> None:
+    """launch/train_r.main on the synthetic smoke config with
+    --train.h2o_backend cluster --train.val_freq 1, on the card: it trains
+    through #10/#11 and its val passes log the certificate (128 points:
+    one cell, certified)."""
+    import logging
+
+    import torch
+
+    from oakink2_tamf_tpu_torch.launch import train_r
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    kernels = _cluster_kernel_objects()
+    _zero_counts(kernels)
+    records = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            records.append(record)
+
+    lg = logging.getLogger("oakink2_tamf_tpu_torch.launch.train_r")
+    handler, level = Keep(level=logging.INFO), lg.level
+    lg.addHandler(handler)
+    lg.setLevel(logging.INFO)
+    try:
+        t0 = time.perf_counter()
+        state = train_r.main(["--cfg", os.path.join(root, "config/synthetic_smoke.yml"), "--exp_id",
+                              "chip_smoke_r_cluster", "--train.h2o_backend", "cluster", "--train.val_freq", "1"])
+        torch.cuda.synchronize()
+    finally:
+        lg.removeHandler(handler)
+        lg.setLevel(level)
+    counts = {n: k.launches for n, k in kernels.items()}
+    msgs = [r.getMessage() for r in records]
+    ok = [m for m in msgs if "cluster-exactness certificate ok" in m]
+    require(state.step == 4 and all(torch.isfinite(p).all() for p in state.model.parameters()),
+            "train_r.main (cluster): wrong step count or non-finite weights")
+    require(counts["h2o_topk"] > 0 and counts["h2o_topk_bwd"] == 4, f"train_r.main (cluster): launches {counts}")
+    require(bool(ok) and not any(r.levelno >= logging.WARNING for r in records),
+            f"train_r.main (cluster): no certificate line, or a warning: {msgs}")
+    print(f"train_r.main (synthetic_smoke.yml, cuda, h2o_backend cluster, val_freq 1): {state.step} steps in "
+          f"{time.perf_counter() - t0:.2f} s; launches {counts}; {len(ok)} certificate lines, e.g. "
+          f"'{ok[0]}'", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1321,6 +1892,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from oakink2_tamf_tpu_torch._device import set_fp32_precision
     from oakink2_tamf_tpu_torch.ops import _build
+    from oakink2_tamf_tpu_torch.ops import chamfer_cluster as CC
     from oakink2_tamf_tpu_torch.ops import chamfer_cull as CU
     from oakink2_tamf_tpu_torch.ops import chamfer_h2o_bwd as HB
     from oakink2_tamf_tpu_torch.ops import chamfer_loss as CL
@@ -1332,7 +1904,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}", flush=True)
 
     kernels = [NN.KERNEL, CU.KERNEL, CS.KERNEL, CS.BWD_KERNEL, CL.KERNEL,
-               NN.DVEC_KERNEL, CU.DVEC_KERNEL, HB.KERNEL]
+               NN.DVEC_KERNEL, CU.DVEC_KERNEL, HB.KERNEL, *CC.KERNELS]
     t0 = time.perf_counter()
     _build.build_all(kernels)
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
@@ -1348,12 +1920,16 @@ def main() -> int:
     kstats.update(check_training_kernels())
     phase("R kernels")
     kstats.update(check_r_kernels())
+    phase("cluster kernels")
+    kstats.update(check_cluster_kernels())
     phase("small pipeline parity")
     small_parity()
     phase("small train-step parity")
     small_train_parity()
     phase("small R train-step parity")
     small_r_train_parity()
+    phase("small R train-step parity, cluster route")
+    small_r_cluster_parity()
     phase("training main path (fused)")
     state, db, train_counts, _ = train_main_path()
     phase("composed route")
@@ -1372,6 +1948,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase("R entry point")
     r_entry_point()
+    phase("R training main path (cluster route)")
+    rc_counts, _ = r_cluster_main_path()
+    phase("signed entry point, cluster route")
+    sc_counts = signed_cluster_entry_point()
+    phase("R entry point, cluster route")
+    r_cluster_entry_point()
     phase("grad_y path")
     gy_counts = grad_y_path()
     phase("serving main path, cull route")
@@ -1380,12 +1962,16 @@ def main() -> int:
     nn_counts, _ = main_path(2048, "50", "h2o_nn", "main path (all-pairs route, 2048 points)")
     # each kernel's count from the path that runs it: serving for #1/#2, the
     # fused G training path for #6/#8, the composed route for #7, the R
-    # training paths for #3 (cull) and #4 (all-pairs), the grad_y path for #5
+    # training paths for #3 (cull) and #4 (all-pairs), the grad_y path for
+    # #5, the R cluster route for #10/#11, the signed cluster entry point
+    # for #12/#13
     launches = {"h2o_nn": nn_counts["h2o_nn"], "h2o_cull": cull_counts["h2o_cull"],
                 "nn_signed": train_counts["nn_signed"], "dist_loss": train_counts["dist_loss"],
                 "nn_signed_bwd": composed_counts["nn_signed_bwd"],
                 "h2o_cull_dvec": r_counts["h2o_cull_dvec"], "h2o_nn_dvec": r_ap_counts["h2o_nn_dvec"],
-                "h2o_nn_bwd": gy_counts["h2o_nn_bwd"]}
+                "h2o_nn_bwd": gy_counts["h2o_nn_bwd"],
+                "h2o_topk": rc_counts["h2o_topk"], "h2o_topk_bwd": rc_counts["h2o_topk_bwd"],
+                "o2h_topk": sc_counts["o2h_topk"], "o2h_topk_bwd": sc_counts["o2h_topk_bwd"]}
 
     line = {"kernels": []}
     for name, st in kstats.items():

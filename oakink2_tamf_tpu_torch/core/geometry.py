@@ -14,6 +14,11 @@ ops/chamfer_h2o_bwd.py).
 `point2point_signed` is the signed bidirectional pair (ops/chamfer_signed.py)
 with its backward kernel. CUDA tensors go to the kernels, CPU tensors to
 their plain versions.
+
+Both take `backend="cluster"`, the cluster-pruned opt-in route
+(ops/chamfer_cluster.py: kernels #10-#13), exact where its certificate
+(`point2point_h2o_overflow`, ops/chamfer_cluster.signed_cluster_overflow)
+is zero. The JAX package's "xla" scan is not ported.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops import chamfer_cull, chamfer_h2o_bwd, chamfer_nn, chamfer_signed
+from ..ops import chamfer_cluster, chamfer_cull, chamfer_h2o_bwd, chamfer_nn, chamfer_signed
 
 CULL_MIN_P2 = 4096
 
@@ -139,6 +144,7 @@ def point2point_h2o(
     *,
     backend: str = "auto",
     x_perm: np.ndarray | None = None,
+    k_cells: int | None = None,
     grad_y: bool = True,
     y_group: int = 1,
     x_valid: torch.Tensor | None = None,
@@ -149,23 +155,33 @@ def point2point_h2o(
     Backends: "auto" takes the culled route for grad_y=False at
     P2 >= CULL_MIN_P2 and the all-pairs route otherwise; "cull" forces the
     culled route (grad_y=False only); "exact" and "pallas" force the
-    all-pairs route. "cluster" and "xla" are not ported (ROADMAP.md §B).
+    all-pairs route; "cluster" is the cluster-pruned opt-in (`k_cells`
+    candidate cells per 128-row tile, ops/chamfer_cluster.K_CELLS_DEFAULT
+    by default): exact only where `point2point_h2o_overflow` is zero, and
+    never below the exact value. The JAX package's "xla" scan is not ported
+    (ROADMAP.md).
 
     `x_valid` [N] is a culling hint for the culled route: False frames come
-    out BIG there (callers must replace them) and are searched on the
-    all-pairs route. `x_perm` (core/mano.hand_template_perm) reorders the
-    rows before the culled route so its 128-row regions are compact;
-    distances map back through the inverse permutation, and both gathers
-    stay in the autograd graph."""
-    if backend in ("cluster", "xla"):
+    out BIG there (callers must replace them) and are searched on the other
+    routes. `x_perm` (core/mano.hand_template_perm) reorders the rows before
+    the culled and cluster routes so their 128-row tiles are compact;
+    distances map back through the inverse permutation (on the culled route
+    both gathers stay in the autograd graph; the cluster route un-permutes
+    inside its autograd.Function)."""
+    if backend == "xla":
         raise NotImplementedError(
-            f"point2point_h2o backend={backend!r} is not ported (its kernels are listed "
-            "in ROADMAP.md §B); use 'auto', 'cull' or 'exact'"
+            "point2point_h2o backend='xla' is not ported (the JAX package's XLA scan; "
+            "ROADMAP.md): use 'auto', 'cull', 'exact' or 'cluster'"
         )
-    if backend not in ("auto", "cull", "exact", "pallas"):
+    if backend not in ("auto", "cull", "exact", "pallas", "cluster"):
         raise ValueError(f"unknown point2point_h2o backend {backend!r}")
     if y_group > 1 and grad_y:
         raise NotImplementedError("y_group > 1 requires grad_y=False")
+    if backend == "cluster":
+        kw = {} if k_cells is None else {"k_cells": k_cells}
+        return chamfer_cluster.point2point_h2o_cluster(
+            x, y, y_valid, x_perm=x_perm, grad_y=grad_y, y_group=y_group, **kw
+        )
     if backend == "cull" and grad_y:
         raise NotImplementedError("backend='cull' requires grad_y=False")
     cull = backend == "cull" or (backend == "auto" and not grad_y and y.shape[1] >= CULL_MIN_P2)
@@ -176,14 +192,41 @@ def point2point_h2o(
     return _h2o(x, y, y_valid, x_valid, cull, grad_y, y_group)
 
 
+def point2point_h2o_overflow(
+    x: torch.Tensor,  # [N, P1, 3]
+    y: torch.Tensor,  # [N // y_group, P2, 3]
+    y_valid: torch.Tensor | None = None,
+    *,
+    backend: str = "auto",
+    x_perm: np.ndarray | None = None,
+    k_cells: int | None = None,
+    y_group: int = 1,
+) -> torch.Tensor:
+    """Per-frame overflow counts [N] int32 for the route point2point_h2o
+    takes on these operands: zero everywhere proves the cluster-pruned
+    result exact; all zeros off the cluster route, whose kernels are exact.
+    Runs the candidate selection only, no nearest-neighbour kernel. Callers
+    that persist h2o values (data/target_cache) recompute overflowed ones
+    on an exact route; train_r monitors it at val time."""
+    if backend != "cluster":
+        return torch.zeros((x.shape[0],), dtype=torch.int32, device=x.device)
+    kw = {} if k_cells is None else {"k_cells": k_cells}
+    return chamfer_cluster.h2o_cluster_overflow(x, y, y_valid, x_perm=x_perm, y_group=y_group, **kw)
+
+
 def point2point_signed(
     x: torch.Tensor,  # [N, P1, 3] hand verts
     y: torch.Tensor,  # [N // y_group, P2, 3] object points
     x_normals: torch.Tensor | None = None,  # [N, P1, 3]
     y_valid: torch.Tensor | None = None,  # [N // y_group, P2] bool
     *,
+    backend: str = "auto",
+    x_perm: np.ndarray | None = None,
+    k_cells: int | None = None,
+    k_tiles: int | None = None,
     grad_y: bool = True,
     y_group: int = 1,
+    y_normals: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Signed distances between two point clouds (the reference's
     model/loss/chamfer_distance.py:point2point_signed).
@@ -196,8 +239,36 @@ def point2point_signed(
 
     grad_y=False keeps y off the differentiation path (every TaMF loss
     differentiates only the hand verts). y_group > 1 is the shared-cloud
-    mode (requires grad_y=False): frame f searches cloud f // y_group. The
-    JAX package's `y_normals` and `cluster` backend are not ported."""
+    mode (requires grad_y=False): frame f searches cloud f // y_group.
+
+    Backends: "auto" and "pallas" run the signed pair's kernels;
+    "cluster" the cluster-pruned opt-in (ops/chamfer_cluster.py; `k_cells`
+    candidate cells per hand tile, `k_tiles` candidate tiles per object
+    cell, 0 = all), exact where ops/chamfer_cluster.signed_cluster_overflow
+    is zero, one cloud per frame (no y_group). `y_normals` (signing x2y) is
+    refused, as the JAX package's kernel routes refuse it; "xla" is not
+    ported."""
+    if y_normals is not None:
+        raise ValueError(
+            "point2point_signed: y_normals are not supported (no TaMF call site passes them; "
+            "the JAX package signs x2y only on its XLA route)"
+        )
+    if backend == "xla":
+        raise NotImplementedError(
+            "point2point_signed backend='xla' is not ported (the JAX package's XLA scan; "
+            "ROADMAP.md): use 'auto' or 'cluster'"
+        )
+    if backend not in ("auto", "pallas", "cluster"):
+        raise ValueError(f"unknown point2point_signed backend {backend!r}")
+    if y_group > 1 and grad_y:
+        raise NotImplementedError("y_group > 1 requires grad_y=False")
+    if backend == "cluster":
+        if y_group > 1:
+            raise NotImplementedError("backend='cluster' has no y_group support")
+        kw = {k: v for k, v in (("k_cells", k_cells), ("k_tiles", k_tiles)) if v is not None}
+        return chamfer_cluster.point2point_signed_cluster(
+            x, y, x_normals, y_valid, x_perm=x_perm, grad_y=grad_y, **kw
+        )
     return chamfer_signed.signed_chamfer(
         x, y, x_normals, y_valid, grad_y=grad_y, y_group=y_group
     )

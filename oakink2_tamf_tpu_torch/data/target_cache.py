@@ -15,10 +15,12 @@ under `cache_dir`, or an in-memory dict. A `cache_dir` records a
 fingerprint of the dataset and the shapes in meta.json and refuses to serve
 a dataset or config it was not built for.
 
-The JAX package also certifies each value against the cluster kernel's
-candidate overflow and recomputes overflowed samples on an exact route
-(its target_cache.py:176-230). That certificate is zero on every route the
-port has (the cluster route is not ported), so it is left out.
+`TargetH2OCache` also certifies each value against the cluster route's
+candidate overflow and recomputes overflowed samples on the exact route
+before storing them (JAX target_cache.py:176-230): a persisted value must
+be provably exact. As in the JAX package its own search takes `h2o_backend`
+= "auto", an exact route, so the certificate reads 0 there; the class
+attribute exists so that the fallback can be driven.
 
 A cold miss (an index `precompute` did not cover) is computed inside the
 loader's worker thread, on that thread's current CUDA stream; launchers
@@ -38,7 +40,7 @@ import numpy as np
 import torch
 
 from ..models.losses import extra_loss_gt_geometry
-from ..models.refine_r import batch_recover_mano, multi_object_h2o_dist
+from ..models.refine_r import batch_recover_mano, multi_object_h2o_dist, multi_object_h2o_overflow
 
 _logger = logging.getLogger(__name__)
 
@@ -47,6 +49,7 @@ _GEOM_KEYS = ("pose_repr", "shape", "hand_side", "obj_traj", "obj_points", "obj_
 
 class TargetH2OCache:
     _log_label = "target_h2o cache"
+    h2o_backend = "auto"  # the route of the cache's own search (see the module note)
 
     def __init__(self, base, mano_stack, collate, *, batch_size: int = 16,
                  cache_dir: str | None = None):
@@ -158,11 +161,21 @@ class TargetH2OCache:
     def _compute(self, batch: dict[str, Any]) -> list:
         """Per-sample values of a collated batch: target_h2o [L, 778] each,
         from the train step's geometry (no frame mask: every frame is
-        searched)."""
+        searched). Samples whose cluster certificate overflows are
+        recomputed on the exact route."""
         b = self._device_batch(batch)
         verts, _, _ = batch_recover_mano(self.mano_stack, b["pose_repr"], b["shape"], b["hand_side"])
-        h2o = multi_object_h2o_dist(verts, b["obj_traj"], b["obj_points"], b["obj_mask"],
-                                    x_perm=self.mano_stack.template_perm)
+        geom = (verts, b["obj_traj"], b["obj_points"], b["obj_mask"])
+        perm = self.mano_stack.template_perm
+        h2o = multi_object_h2o_dist(*geom, x_perm=perm, backend=self.h2o_backend)
+        bad = multi_object_h2o_overflow(*geom, x_perm=perm, backend=self.h2o_backend) > 0
+        if bool(bad.any()):
+            _logger.warning(
+                "target_h2o: cluster NN overflow on %d/%d segments; recomputing those with "
+                "the exact all-pairs kernel", int(bad.sum()), bad.numel(),
+            )
+            exact = multi_object_h2o_dist(*(t[bad] for t in geom), x_perm=perm, backend="exact")
+            h2o[bad] = exact
         return list(h2o.cpu().numpy().astype(np.float32))
 
     def precompute(self, *, force: bool = False) -> int:

@@ -13,11 +13,13 @@ only: R, MANO of its output and the h2o kernels (parallel/train.py).
 
 The YAMLs are the JAX package's. The device is `runtime.device` ("cuda" by
 default; without a GPU the run raises unless told "cpu"); `train.h2o_backend`
-routes the h2o searches ("auto", "cull", "exact"; "cluster" and "xla"
-raise). Not ported: the real-data segments (`data.synthetic` must be true),
-and the JAX launcher's cluster-exactness probe (`make_overflow_probe`,
-`report_cluster_overflow`): it certifies the cluster route, which the port
-does not have.
+routes the h2o searches ("auto", "cull", "exact", or the cluster-pruned
+opt-in "cluster"; "xla" raises). Each val/test pass runs the JAX launcher's
+cluster-exactness certificate on its first batch (`make_overflow_probe`,
+`report_cluster_overflow`): INFO when the sample hand's cluster search was
+provably exact (always so off the cluster route), WARNING with the count of
+overflowed tiles otherwise, and the `{split}/h2o_cluster_overflow` scalar.
+Not ported: the real-data segments (`data.synthetic` must be true).
 """
 
 from __future__ import annotations
@@ -34,7 +36,14 @@ from ..data.adaptors import ConcatDataset, GaussianPerturbSampleAdaptor, Generat
 from ..data.collate import SegmentCollate
 from ..data.target_cache import TargetH2OCache
 from ..models import losses as LL
-from ..models.refine_r import RefineConfig, SegmentRefineNet, refine_forward, stack_mano_models
+from ..models.refine_r import (
+    RefineConfig,
+    SegmentRefineNet,
+    batch_recover_mano,
+    multi_object_h2o_overflow,
+    refine_forward,
+    stack_mano_models,
+)
 from ..parallel import train as PT
 from ..runtime.ckpt import load_checkpoint, save_train_state
 from ..runtime.logging import MetricWriter
@@ -111,18 +120,58 @@ def refine_forward_eval(net, mano_stack, batch, backend: str = "auto"):
     return refine_forward(net, mano_stack, batch, backend=backend, loss_frame_mask=batch["mask"])
 
 
+def make_overflow_probe(mano_stack, *, backend: str = "auto"):
+    """Batch -> total cluster-overflow count (a 0-d int32 tensor) of the h2o
+    search the refine pass runs on the sample hand, R's live input (JAX
+    launch/train_r.py:286). Zero proves the cluster route's distances
+    exact; it is zero off the cluster route."""
+
+    @torch.no_grad()
+    def probe(b) -> torch.Tensor:
+        verts, _, _ = batch_recover_mano(mano_stack, b["sample_pose_repr"], b["shape"], b["hand_side"])
+        ovf = multi_object_h2o_overflow(verts, b["obj_traj"], b["obj_points"], b["obj_mask"],
+                                        x_perm=mano_stack.template_perm, backend=backend)
+        return ovf.sum()
+
+    return probe
+
+
+def report_cluster_overflow(ovf_fn, batch, split: str, epoch_id: int, writer, step: int) -> int:
+    """Run the overflow probe on one val batch; INFO at zero, WARNING above
+    (the h2o distances were overestimated: retune k_cells or route
+    backend='exact'), and the `{split}/h2o_cluster_overflow` scalar. Returns
+    the count (JAX launch/train_r.py:309)."""
+    count = int(ovf_fn(batch))
+    if count > 0:
+        _logger.warning(
+            "%s epoch %04d: cluster NN overflow on val batch — %d x-tiles "
+            "exceeded the candidate budget; h2o distances in this regime are "
+            "OVERESTIMATED. Retune ops/chamfer_cluster k_cells or route "
+            "backend='exact'.",
+            split, epoch_id, count,
+        )
+    else:
+        _logger.info("%s epoch %04d: cluster-exactness certificate ok (0 overflow)", split, epoch_id)
+    if writer is not None:
+        writer.add_scalar(f"{split}/h2o_cluster_overflow", float(count), step)
+    return count
+
+
 @torch.no_grad()
 def evaluate_r(net, mano_stack, assets, loss_cfg, loader, device, backend: str = "auto",
-               max_batches: int = 0) -> dict[str, float]:
+               max_batches: int = 0, on_first_batch=None) -> dict[str, float]:
     """val/test pass (reference train_refine.py val passes): the refine loss
     and its terms of the deterministic forward, meaned over the batches;
-    max_batches=0 runs the whole split."""
+    max_batches=0 runs the whole split. `on_first_batch(device_batch)` runs
+    once, on the first batch (the launcher's exactness certificate)."""
     was_training = net.training
     acc: dict[str, list] = {}
     for n, batch in enumerate(loader):
         if max_batches and n >= max_batches:
             break
         db = common.device_batch(batch, device)
+        if n == 0 and on_first_batch is not None:
+            on_first_batch(db)
         _, terms = LL.segment_refine_loss(assets, loss_cfg, refine_forward_eval(net, mano_stack, db, backend), db)
         for k, v in terms.items():
             acc.setdefault(k, []).append(float(v))
@@ -188,6 +237,7 @@ def main(argv=None) -> PT.TrainState:
         _logger.info("reloaded ckpt from %s at step %d", train_cfg["reload_ckpt_model_filepath"], state.step)
 
     step_fn = PT.make_r_train_step(mano_stack, assets, loss_cfg, backend=backend)
+    ovf_fn = make_overflow_probe(mano_stack, backend=backend)
     writer = MetricWriter(run_dir.sub("summary") if run_dir.commit else None, enabled=run_dir.commit)
 
     def wrap_eval(split, base):
@@ -227,8 +277,12 @@ def main(argv=None) -> PT.TrainState:
             _logger.info("saved %s", path)
         if val_freq and (epoch_id == 0 or (epoch_id + 1) % val_freq == 0 or epoch_id == num_epoch - 1):
             for split, eval_loader in eval_loaders.items():
+                def certify(db, split=split):
+                    report_cluster_overflow(ovf_fn, db, split, epoch_id, writer, global_step)
+
                 terms = evaluate_r(net, mano_stack, assets, loss_cfg, eval_loader, device, backend,
-                                   max_batches=int(train_cfg.get("eval_max_batches", 0) or 0))
+                                   max_batches=int(train_cfg.get("eval_max_batches", 0) or 0),
+                                   on_first_batch=certify)
                 _logger.info("%s epoch %04d refine eval | %s", split, epoch_id,
                              " | ".join(f"{k}: {v:f}" for k, v in sorted(terms.items())))
                 for k, v in terms.items():

@@ -157,7 +157,9 @@ def multi_object_h2o_dist(
     each object's canonical frame (one shared cloud per (sample, object),
     y_group = L frames), then a min over the real objects. Padded object
     slots count as PAD_OBJECT_H2O. With `frame_mask`, mask-padded frames are
-    culled on the cull route and come out BIG: callers replace them.
+    culled on the cull route and come out BIG: callers replace them (the
+    other routes search them). `x_perm` tiles the hand rows on the culled
+    and cluster routes.
     Differentiable in the hand verts (core/geometry.point2point_h2o with
     grad_y=False: the clouds come from the batch)."""
     bs, L, nhv, _ = hand_verts.shape
@@ -172,6 +174,28 @@ def multi_object_h2o_dist(
     ).reshape(bs, nobj, L, nhv)
     h2o = torch.where(obj_mask[:, :, None, None], h2o, PAD_OBJECT_H2O)
     return torch.amin(h2o, dim=1)
+
+
+def multi_object_h2o_overflow(
+    hand_verts: torch.Tensor,  # [bs, L, 778, 3]
+    obj_traj: torch.Tensor,  # [bs, nobj, L, 9]
+    obj_points: torch.Tensor,  # [bs, nobj, P, 3]
+    obj_mask: torch.Tensor,  # [bs, nobj] bool
+    x_perm: np.ndarray | None = None,
+    backend: str = "auto",
+) -> torch.Tensor:
+    """Per-sample cluster-overflow counts [bs] int32 for the operands
+    multi_object_h2o_dist searches (JAX refine_r.py:255): zero proves its
+    result exact on that route, and it is zero off the cluster route.
+    Every point counts as valid, as in the JAX package; padded object slots
+    are excluded afterwards (their distances never enter the min)."""
+    bs, L = hand_verts.shape[:2]
+    nobj = obj_points.shape[1]
+    with torch.no_grad():
+        x, y = _canonical_frame_operands(hand_verts, obj_traj, obj_points)
+        ovf = G.point2point_h2o_overflow(x, y, backend=backend, x_perm=x_perm, y_group=L)
+    ovf = torch.where(obj_mask[:, :, None], ovf.reshape(bs, nobj, L), 0)
+    return ovf.sum(dim=(1, 2)).to(torch.int32)
 
 
 def target_geometry(

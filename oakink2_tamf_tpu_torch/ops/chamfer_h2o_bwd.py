@@ -10,9 +10,10 @@ forward's first-min index and xr = cot / max(dist, 1e-12):
   gy_j = - sum_{i : idx_i = j} xr_i (x_i - y_j)     (grad_y, y_group == 1)
 x and y are the caller's uncentred coordinates, as the TPU wrapper's are.
 
-Kernel (csrc/h2o_nn_bwd.cu) design and bound: see the source. The work is
-bytes: each input read once and each output written once, at 3.35 TB/s on
-the H100 SXM.
+Kernel (csrc/h2o_nn_bwd.cu; its device code is csrc/h2o_bwd_common.cuh,
+shared with the cluster route's backward #11) design and bound: see the
+sources. The work is bytes: each input read once and each output written
+once, at 3.35 TB/s on the H100 SXM.
 
 On a CUDA tensor `h2o_backward` launches the kernel or raises; on a CPU
 tensor it runs `plain`, which scatters gy with index_add (another
@@ -55,8 +56,10 @@ def plain(x, y, idx, xr, grad_y: bool, y_group: int):
     return gx, gy.reshape(G, P2, 3)
 
 
-def launch(x, y, idx, xr, grad_y: bool, y_group: int):
-    """Launch the kernel: (gx [F, P1, 3], gy [F, P2, 3] or None)."""
+def launch(x, y, idx, xr, grad_y: bool, y_group: int, kernel: Kernel = KERNEL):
+    """Launch the kernel: (gx [F, P1, 3], gy [F, P2, 3] or None). `kernel`
+    is #5 or the cluster route's #11 (ops/chamfer_cluster.H2O_BWD_KERNEL),
+    whose library holds the same device code under its own symbol."""
     F, P1, _ = x.shape
     G, P2, _ = y.shape
     for name, t, dt in (("x", x, torch.float32), ("y", y, torch.float32),
@@ -74,7 +77,7 @@ def launch(x, y, idx, xr, grad_y: bool, y_group: int):
     gx = torch.empty((F, P1, 3), dtype=torch.float32, device=x.device)
     gy = torch.empty((F, P2, 3), dtype=torch.float32, device=x.device) if grad_y else None
     with torch.cuda.device(x.device):
-        KERNEL.launch(
+        kernel.launch(
             x.data_ptr(), y.data_ptr(), idx.data_ptr(), xr.data_ptr(), gx.data_ptr(),
             gy.data_ptr() if grad_y else None, F, P1, P2, y_group, int(grad_y),
             torch.cuda.current_stream().cuda_stream,

@@ -63,7 +63,7 @@ def prepare(x: torch.Tensor, y: torch.Tensor, y_valid: torch.Tensor | None, y_gr
     G, P2, _ = y.shape
     if F != G * y_group:
         raise ValueError(f"frames {F} != groups {G} x y_group {y_group}")
-    y = y.to(torch.float32)
+    y = y.to(torch.float32).contiguous()  # one summation order for the mean, whatever the layout
     ctr = y.mean(dim=1)  # [G, 3]
     yc = y - ctr[:, None]
     if y_valid is not None:
@@ -82,7 +82,12 @@ def pair_d2(xc: torch.Tensor, y4: torch.Tensor) -> torch.Tensor:
     d = x - y per coordinate in f32, then fl(d0*d0), fma(d1, d1, .),
     fma(d2, d2, .). Each fma is formed exactly in f64 (a product of two f32
     is exact there) and rounded once to f32. xc [G, yg, P1, 3], y4 [G, n, 4]."""
-    d = xc[:, :, :, None, :] - y4[:, None, None, :, :3]
+    return sq_norm_rn(xc[:, :, :, None, :] - y4[:, None, None, :, :3])
+
+
+def sq_norm_rn(d: torch.Tensor) -> torch.Tensor:
+    """fma(d2, d2, fma(d1, d1, fl(d0 * d0))) over the last axis of the f32
+    differences d [..., 3], with the kernels' rounding (see `pair_d2`)."""
     s = (d[..., 0] * d[..., 0]).to(torch.float64)
     s = (d[..., 1].double() * d[..., 1].double() + s).float().double()
     return (d[..., 2].double() * d[..., 2].double() + s).float()

@@ -146,14 +146,14 @@ def test_point2point_h2o_is_forward_only(monkeypatch):
 
 
 def test_point2point_h2o_refuses_unported_backends():
-    """What the routed entry point refuses: the unported backends (ROADMAP
-    section B), a gradient for a shared cloud and the culled route with
-    grad_y (tests/test_torch_h2o_grad.py holds the gradients)."""
+    """What the routed entry point refuses: the unported "xla" backend (the
+    cluster route is ported: tests/test_torch_cluster.py), a gradient for a
+    shared cloud and the culled route with grad_y
+    (tests/test_torch_h2o_grad.py holds the gradients)."""
     x = torch.zeros(2, 4, 3, requires_grad=True)
     y = torch.zeros(1, 8, 3)
-    for backend in ("cluster", "xla"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TG.point2point_h2o(x, y, backend=backend, grad_y=False, y_group=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TG.point2point_h2o(x, y, backend="xla", grad_y=False, y_group=2)
     with pytest.raises(NotImplementedError):
         TG.point2point_h2o(x, y, y_group=2)  # grad_y=True with a shared cloud
     with pytest.raises(NotImplementedError):

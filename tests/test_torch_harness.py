@@ -16,6 +16,7 @@ import torch
 import oakink2_tamf_tpu_torch
 from oakink2_tamf_tpu_torch import _device
 from oakink2_tamf_tpu_torch.ops import _build
+from oakink2_tamf_tpu_torch.ops import chamfer_cluster as CC
 from oakink2_tamf_tpu_torch.ops import chamfer_cull as CU
 from oakink2_tamf_tpu_torch.ops import chamfer_h2o_bwd as HB
 from oakink2_tamf_tpu_torch.ops import chamfer_loss as CL
@@ -23,7 +24,7 @@ from oakink2_tamf_tpu_torch.ops import chamfer_nn as NN
 from oakink2_tamf_tpu_torch.ops import chamfer_signed as CS
 
 KERNELS = (NN.KERNEL, CU.KERNEL, CS.KERNEL, CS.BWD_KERNEL, CL.KERNEL,
-           NN.DVEC_KERNEL, CU.DVEC_KERNEL, HB.KERNEL)
+           NN.DVEC_KERNEL, CU.DVEC_KERNEL, HB.KERNEL) + CC.KERNELS
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
 PKG = pathlib.Path(oakink2_tamf_tpu_torch.__file__).parent
@@ -280,4 +281,73 @@ def test_cuda_r_kernels_match_plain_versions():
         if grad_y:
             _assert_scatter_close(gy, py)
         else:
+            assert gy is None
+
+
+def _cluster_scene(F=6, P1=778, P2=2048, seed=33):
+    """Hand-sized 128-row clusters near a spatially sorted cloud per frame;
+    frame 1 ragged, frame 2 all-invalid; unit normals."""
+    from oakink2_tamf_tpu_torch.utils.pc_util import spatial_sort_indices
+
+    rng = np.random.default_rng(seed)
+    y = rng.normal(scale=0.1, size=(F, P2, 3)).astype(np.float32)
+    for f in range(F):
+        y[f] = y[f][spatial_sort_indices(y[f])]
+    centers = rng.normal(scale=0.1, size=(F, 7, 3))
+    x = (centers[:, np.minimum(np.arange(P1) // 128, 6)] + rng.normal(scale=0.015, size=(F, P1, 3))).astype(np.float32)
+    n = rng.normal(size=(F, P1, 3)).astype(np.float32)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    yv = np.ones((F, P2), bool)
+    yv[1, 700:] = False
+    yv[2] = False
+    return (torch.from_numpy(a).cuda() for a in (x, y, yv, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["h2o_topk", "h2o_topk_bwd", "o2h_topk", "o2h_topk_bwd"])
+def test_cuda_cluster_kernels_match_plain_versions(kernel):
+    """Each cluster kernel (#10-#13) on the card against its plain version
+    on the same operands: the forwards share the per-pair function (equal
+    values, indices and sign numerators); #11's gx is the same products
+    (equal); the atomics of #11's gy and #13's gx sum in another order,
+    held per frame: ||a_f - b_f|| <= 1e-5 ||b_f|| + 1e-6."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from oakink2_tamf_tpu_torch.ops import chamfer_cluster as CC
+
+    _device.set_fp32_precision()
+    x, y, yv, n = _cluster_scene()
+    perm = CC.template_perm(x[0].cpu().numpy())
+    if kernel in ("h2o_topk", "o2h_topk"):
+        xp, xs, y4, ctr = CC._prepare(x, y, yv, 1, perm)
+        xc, xv, yc, yvp = CC.selection_operands(xs, y, yv, ctr, 1)
+        if kernel == "h2o_topk":
+            cidx, _ = CC.h2o_select(xc, xv, *CC.cell_stats(yc, yvp), 8, 1)
+            got, want = CC.launch_h2o_topk(xs, y4, ctr, cidx, 1), CC.plain_h2o_topk(xs, y4, ctr, cidx, 1)
+        else:
+            ns = xp.apply(n).contiguous()
+            cidx_y, _ = CC.o2h_select(yc, yvp, *CC.x_tile_stats(xc, xv), 3)
+            got, want = CC.launch_o2h_topk(xs, ns, y4, ctr, cidx_y), CC.plain_o2h_topk(xs, ns, y4, ctr, cidx_y)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        return
+    for grad_y in (False, True):
+        if kernel == "h2o_topk_bwd":
+            _, idx = CC.h2o_cluster_forward(x, y, yv, x_perm=perm)
+            xr = torch.randn(x.shape[:2], device="cuda")
+            xr[:, ::7] = 0.0
+            gx, gy = CC.h2o_topk_backward(x, y, idx, xr, grad_y)
+            px, py = HB.plain(x, y, idx, xr, grad_y, 1)
+            assert torch.equal(gx, px)
+            if grad_y:
+                _assert_scatter_close(gy, py)
+        else:
+            o2h_i = CC.signed_cluster_forward(x, y, n, yv, x_perm=perm, k_tiles=4)[3]
+            yc = torch.randn(y.shape[:2], device="cuda") * yv
+            gx, gy = CC.launch_o2h_backward(x, y, o2h_i, yc, grad_y)
+            px, py = CC.plain_o2h_backward(x, y, o2h_i, yc, grad_y)
+            _assert_scatter_close(gx, px)
+            if grad_y:
+                assert torch.equal(gy, py)
+        if not grad_y:
             assert gy is None

@@ -319,7 +319,7 @@ def test_train_r_refuses_what_is_not_ported(tmp_path, monkeypatch):
     base = ["--cfg", os.path.join(REPO, "config/synthetic_smoke.yml"), "--runtime.device", "cpu",
             "--train.num_epoch", "1", "--train.data.cache_target_h2o", "false"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_r.main(base + ["--train.h2o_backend", "cluster"])
+        train_r.main(base + ["--train.h2o_backend", "xla"])
     with pytest.raises(NotImplementedError, match="segment.py"):
         train_r.main(base + ["--data.synthetic", "false"])
     with pytest.raises(NotImplementedError, match="float32"):
