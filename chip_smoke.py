@@ -1499,8 +1499,18 @@ def check_cluster_kernels() -> dict[str, dict]:
           f"tiles {int(ovf.sum())} of {ovf.numel()} ({share:.4f}), rows above the exact value "
           f"{int((over > 0).sum())} (max {over.max().item() if over.numel() else 0.0} m^2)", flush=True)
     del da, clear, over
-    pairs10 = float(F * P1 * K * CC.S_CELL)
-    b10, by10 = bound_ms(xs.numel() * 4 + y4.numel() * 4 + cidx.numel() * 4 + F * P1 * 8, pairs10)
+    # the work this run's data needs: each tile's real rows against the valid
+    # points of its candidate cells (a padded slot's cells hold none), the
+    # operands of frames whose cloud has a valid point, every output row
+    S = CC.S_CELL
+    cell_pts = torch.nn.functional.pad(yv, (0, -(-P2 // S) * S - P2), value=False).reshape(G, -1, S).sum(-1)
+    tile_rows = (P1 - S * torch.arange(T, device=x.device)).clamp(max=S)
+    cloud = torch.arange(F, device=x.device) // L
+    pairs10 = float((cell_pts[cloud[:, None, None], cidx.long()] * tile_rows[:, None]).sum())
+    live_f = int(yv.any(1)[cloud].sum())
+    b10, by10 = bound_ms(live_f * (P1 * 12 + T * K * 4) + int(yv.sum()) * 16 + F * P1 * 8, pairs10)
+    print(f"h2o_topk bound: {pairs10:.6g} pairs on {live_f} of {F} frames with a real object", flush=True)
+    del cell_pts, cloud
     xc = NN.centred_x(xs, ctr, L).reshape(G, L * P1, 3)
     yc = y4[..., :3].contiguous()
     out["h2o_topk"] = dict(
@@ -1533,8 +1543,12 @@ def check_cluster_kernels() -> dict[str, dict]:
     print(f"h2o_topk_bwd nogy (F={F}, y_group {L}): gx equal to plain; grad_y (F={xg.shape[0]}, "
           f"P2={R_ALL_PAIRS_P}): gx equal, gy within 1e-5 per frame (max abs err {err11})", flush=True)
     del xg, yg, yvg, ig, xrg, gx, gy, px, py
-    rows = torch.unique((torch.arange(F, device=x.device) // L)[:, None] * P2 + ii.long()).numel()
-    b11, by11 = bound_ms(x.numel() * 4 + F * P1 * 8 + rows * 12 + F * P1 * 12, 0)
+    # rows with a nonzero cotangent read x and their index and gather a y
+    # row (each distinct row once); every cotangent is read, every gx written
+    live = xr != 0
+    rows = torch.unique(((torch.arange(F, device=x.device) // L)[:, None] * P2 + ii.long())[live]).numel()
+    b11, by11 = bound_ms(F * P1 * 4 + int(live.sum()) * 16 + rows * 12 + F * P1 * 12, 0)
+    del live
     out["h2o_topk_bwd"] = dict(
         kernel=CC.H2O_BWD_KERNEL, max_abs_err=err11, shape=[F, P1, P2],
         ms=cuda_time_ms(lambda: CC.h2o_topk_backward(x, y, ii, xr, False, L), reps=10),
@@ -1560,6 +1574,7 @@ def check_cluster_kernels() -> dict[str, dict]:
         want = CC.plain_o2h_topk(xs6, ns6, y46, ctr6, cidx_y)
         for nm, a, b in zip(("o2h_d", "o2h_i", "o2h_dot"), got, want):
             require(torch.equal(a, b), f"o2h_topk {nm} (k_tiles {kt}) differs from its plain version")
+        err12 = max(err12, *((a - b).abs().max().item() for a, b in zip(got[::2], want[::2])))
         if kt == 0:
             sig = CS.launch(xs6, ns6, y46, ctr6, 1)
             for nm, a, b in zip(("o2h_d", "o2h_i", "o2h_dot"), got, sig[2:]):
@@ -1590,6 +1605,9 @@ def check_cluster_kernels() -> dict[str, dict]:
     yF, yvF = y.repeat_interleave(L, 0).contiguous(), yv.repeat_interleave(L, 0)
     xpF, xsF, y4F, ctrF = CC._prepare(x, yF, yvF, 1, perm)
     nsF = xpF.apply(nrm).contiguous()
+    # the work this run's data needs: the valid points against the 778 rows,
+    # the operands of frames whose cloud has a valid point, every output
+    n_valid, live_f = int(yvF.sum()), int(yvF.any(1).sum())
     del yvF
     C = y4F.shape[1] // CC.S_CELL
     cidx_y = torch.arange(T, dtype=torch.int32, device=x.device).expand(F, C, T).contiguous()
@@ -1599,8 +1617,9 @@ def check_cluster_kernels() -> dict[str, dict]:
     for nm, a, b in zip(("o2h_d", "o2h_i", "o2h_dot"), o2h, want):
         require(torch.equal(a[sl], b), f"o2h_topk {nm} differs from its plain version at F={part[0]} P2={P2}")
     del want
-    b12, by12 = bound_ms(xsF.numel() * 8 + y4F.numel() * 4 + cidx_y.numel() * 4 + F * P2 * 12,
-                         float(F * P2 * P1))
+    b12, by12 = bound_ms(live_f * (P1 * 24 + C * T * 4) + n_valid * 16 + F * P2 * 12, float(n_valid * P1))
+    print(f"o2h_topk bound: {n_valid * P1:.6g} pairs, {n_valid} valid points on {live_f} of {F} frames",
+          flush=True)
     xcF = NN.centred_x(xsF, ctrF, 1)
     ycF = y4F[..., :3]
     out["o2h_topk"] = dict(
@@ -1615,10 +1634,15 @@ def check_cluster_kernels() -> dict[str, dict]:
     del o2h
     torch.cuda.empty_cache()
     ycot = torch.randn(F, P2, device="cuda") * yv.repeat_interleave(L, 0)
-    srt = torch.sort(o2h_i, dim=1).values
-    rows = F + int((srt[:, 1:] != srt[:, :-1]).sum())  # the x rows the gather needs
-    del srt
-    b13, by13 = bound_ms(F * P2 * 8 + yF.numel() * 4 + rows * 12 + F * P1 * 12, 0)
+    # points with a nonzero cotangent (the valid ones) read y and their index
+    # and gather an x row (each distinct row once); every cotangent is read,
+    # every gx written
+    live = ycot != 0
+    srt = torch.sort(torch.where(live, o2h_i, P1), dim=1).values  # P1 marks a point without work
+    rows = int((srt[:, 0] != P1).sum()) + int(((srt[:, 1:] != srt[:, :-1]) & (srt[:, 1:] != P1)).sum())
+    n_live = int(live.sum())
+    del srt, live
+    b13, by13 = bound_ms(F * P2 * 4 + n_live * 16 + rows * 12 + F * P1 * 12, 0)
     out["o2h_topk_bwd"] = dict(
         kernel=CC.O2H_BWD_KERNEL, max_abs_err=err13, shape=[F, P1, P2],
         ms=cuda_time_ms(lambda: CC.launch_o2h_backward(x, yF, o2h_i, ycot, False), reps=5),

@@ -18,9 +18,8 @@ a dataset or config it was not built for.
 `TargetH2OCache` also certifies each value against the cluster route's
 candidate overflow and recomputes overflowed samples on the exact route
 before storing them (JAX target_cache.py:176-230): a persisted value must
-be provably exact. As in the JAX package its own search takes `h2o_backend`
-= "auto", an exact route, so the certificate reads 0 there; the class
-attribute exists so that the fallback can be driven.
+be provably exact. As in the JAX package its own search takes the "auto"
+backend, an exact route, so the certificate reads 0 there.
 
 A cold miss (an index `precompute` did not cover) is computed inside the
 loader's worker thread, on that thread's current CUDA stream; launchers
@@ -49,7 +48,6 @@ _GEOM_KEYS = ("pose_repr", "shape", "hand_side", "obj_traj", "obj_points", "obj_
 
 class TargetH2OCache:
     _log_label = "target_h2o cache"
-    h2o_backend = "auto"  # the route of the cache's own search (see the module note)
 
     def __init__(self, base, mano_stack, collate, *, batch_size: int = 16,
                  cache_dir: str | None = None):
@@ -167,8 +165,8 @@ class TargetH2OCache:
         verts, _, _ = batch_recover_mano(self.mano_stack, b["pose_repr"], b["shape"], b["hand_side"])
         geom = (verts, b["obj_traj"], b["obj_points"], b["obj_mask"])
         perm = self.mano_stack.template_perm
-        h2o = multi_object_h2o_dist(*geom, x_perm=perm, backend=self.h2o_backend)
-        bad = multi_object_h2o_overflow(*geom, x_perm=perm, backend=self.h2o_backend) > 0
+        h2o = multi_object_h2o_dist(*geom, x_perm=perm)
+        bad = multi_object_h2o_overflow(*geom, x_perm=perm) > 0
         if bool(bad.any()):
             _logger.warning(
                 "target_h2o: cluster NN overflow on %d/%d segments; recomputing those with "

@@ -191,6 +191,8 @@ def multi_object_h2o_overflow(
     are excluded afterwards (their distances never enter the min)."""
     bs, L = hand_verts.shape[:2]
     nobj = obj_points.shape[1]
+    if backend != "cluster":  # exact routes: no operands to build
+        return torch.zeros((bs,), dtype=torch.int32, device=hand_verts.device)
     with torch.no_grad():
         x, y = _canonical_frame_operands(hand_verts, obj_traj, obj_points)
         ovf = G.point2point_h2o_overflow(x, y, backend=backend, x_perm=x_perm, y_group=L)

@@ -246,15 +246,20 @@ def test_target_cache_recomputes_overflowed_samples_exactly(manos, monkeypatch, 
     _, pst = manos
     base, collate = _ShellSegments(), SegmentCollate(max_nobj=1, n_obj_points=3200)
     calls = []
-    dist = TC.multi_object_h2o_dist
+    dist, overflow = TC.multi_object_h2o_dist, TC.multi_object_h2o_overflow
 
-    def spy(*args, backend="auto", **kw):
+    def spy(*args, backend="auto", **kw):  # the cache's own "auto" search goes to the cluster route
+        backend = "cluster" if backend == "auto" else backend
         calls.append((backend, args[0].shape[0]))
         return dist(*args, backend=backend, **kw)
 
+    def cluster_overflow(*args, backend="auto", **kw):
+        assert backend == "auto"
+        return overflow(*args, backend="cluster", **kw)
+
     monkeypatch.setattr(TC, "multi_object_h2o_dist", spy)
+    monkeypatch.setattr(TC, "multi_object_h2o_overflow", cluster_overflow)
     cache = TC.TargetH2OCache(base, pst, collate, batch_size=2)
-    cache.h2o_backend = "cluster"
     with caplog.at_level(logging.WARNING, logger="oakink2_tamf_tpu_torch.data.target_cache"):
         assert cache.precompute() == 2
     b = {k: _t(v) for k, v in collate([base[i] for i in range(2)]).items() if k in TC._GEOM_KEYS}
