@@ -17,7 +17,11 @@ Phases (any failure exits non-zero and prints no result line):
    then time each kernel at the G training shape (40960 frames = batch 64
    x 4 object slots x 160 frames), its plain version on 1/8 of those
    frames (x 8), and torch.cdist with min/argmin both ways as the signed
-   forward's library yardstick;
+   forward's library yardstick; then the region-culled loss kernel (#9) on
+   the same shape with the template permutation and an all-invalid slot:
+   against its plain version on 1/8 of the frames, bit-equal to #8 on live
+   frames, the mask's run and candidate shares, timed with the mask stage
+   and #8 on the same operands;
 4. R kernels (#3 culled dvec, #4 all-pairs dvec, #5 h2o backward): check
    each against its plain version on 32 frames x 778 rows x 8192 points
    (ragged cloud, all-invalid cloud, x_valid=False frames; #5 in both
@@ -32,18 +36,20 @@ Phases (any failure exits non-zero and prints no result line):
    (equal on rows of certified tiles, never below; the overflowed-tile
    share is printed); #12 at k_tiles 0 against #6's o2h half; each timed
    at 40960 frames x 778 x 8192 with the selection stage;
-6. small GPU-vs-CPU parity: the serving pipeline, a G train step on both
-   dist routes and an R train step on all three h2o routes (same weights,
-   batch and noise, dropout 0): loss and gradients must agree;
+6. small GPU-vs-CPU parity: the serving pipeline, a G train step on the
+   three dist routes and an R train step on all three h2o routes (same
+   weights, batch and noise, dropout 0): loss and gradients must agree;
 7. the G training main path: arch_mdm_l, batch 64 x 160 frames x 4 objects
    x 8192 points, 1000-step cosine schedule, dist_impl="auto" (fused),
    synthetic segments, one warm-up step then 3 timed steps; the signed
    forward (GT side) and the fused loss kernel must launch once per step;
-   then the step's split on the same batch;
+   then the step's split on the same batch; then the same on
+   dist_impl="fused_cull" (#9 once per step, #8 and #7 never), its split
+   with the mask stage on its own line;
 8. the composed route: the same model and batch, 2 steps; the signed
    forward and its backward kernel must launch;
 9. the entry point: launch/train_g.main on config/synthetic_smoke.yml on
-   the card (two short epochs);
+   the card (two short epochs), on the fused and the fused_cull routes;
 10. the gt_geom cache: train_g.main with train.data.cache_gt_geom (the
    signed forward runs in the precompute, not in the steps), then a fresh
    cache's cold misses computed in the loader's threads against the
@@ -539,6 +545,106 @@ def check_training_kernels() -> dict[str, dict]:
     return out
 
 
+def kept_pairs(mask, yv, tile: int, L: int, P1: int = 778) -> float:
+    """The (real row, valid point) pairs of the blocks a region-cull mask
+    [F, R, T] keeps (it keeps nothing of x_valid=False frames): #9's work."""
+    import torch
+
+    F, R, T = mask.shape
+    rows = torch.tensor([min(128, P1 - 128 * r) for r in range(R)], device=mask.device, dtype=torch.float64)
+    pts = torch.stack([yv[:, t * tile : (t + 1) * tile].sum(dim=1) for t in range(T)], dim=1)  # [G, T]
+    kept = (mask != 0).double() * rows[None, :, None]
+    return float((kept * pts.repeat_interleave(L, dim=0)[:, None, :].double()).sum())
+
+
+def mask_shares(mask, xv) -> tuple[float, float]:
+    """Run share (flags != 0) and candidate share (flags >= 2) of a
+    region-cull mask over the x_valid frames."""
+    m = mask[xv]
+    return (m != 0).double().mean().item(), (m >= 2).double().mean().item()
+
+
+def check_cull_loss_kernel() -> dict[str, dict]:
+    """#9 dist_loss_cull on the G main path's operands: training_scene at
+    40960 frames (256 clouds x 160, y_group 160), its hand clusters laid
+    out so that the template permutation gathers each into one 128-row
+    region (as it makes a hand's regions compact), then permuted as
+    chamfer_dist_loss(x_perm=) permutes rows, normals, h2o_g and vw; group
+    1 ragged, group 2 the all-zero padded slot, group 3 all-invalid, every
+    7th frame x_valid=False; mask tile 2048 (_clamp_tile(2048, 8192)).
+    - against plain_cull on the 5120 frames (1/8) it is timed on: v, dh and
+      gx_dh within #8's check's tolerance (rtol 1e-6 / atol 1e-7: one ulp of
+      a sqrt or a division), gx_do within 1e-5 per frame (atomics);
+    - against #8 on the same operands: v, dh and gx_dh bit-equal on live
+      frames whose cloud has a valid point, gx_do within 1e-5 per frame;
+      zeros elsewhere;
+    - timed with the mask stage, #8 on the same operands and the plain
+      version (8 x the time on 1/8 of the frames); its bound counts the
+      (real row, valid point) pairs of the blocks the mask keeps."""
+    import torch
+
+    from oakink2_tamf_tpu_torch.ops import chamfer_loss as CL
+
+    out = {}
+    L, tile = TRAIN_L, 2048
+    x, n, y, yv, xv, og, hg, vw = training_scene(TRAIN_CLOUDS, L, seed=16)
+    yv[3] = False
+    perm = torch.as_tensor(_r_geometry(torch.device("cuda"))[0].template_perm, device="cuda")
+    inv = torch.argsort(perm)
+    x, n, hg, vw = x[:, inv], n[:, inv], hg[:, inv], vw[inv]  # the clusters in template order
+    x, n, hg, vw = x[:, perm], n[:, perm], hg[:, perm], vw[perm]  # what chamfer_dist_loss hands on
+    F, P1, _ = x.shape
+    G, P2 = y.shape[:2]
+    mask = CL.region_cull_mask(x, y, yv, tile, L, xv)
+    ops = CL.prepare(x, n, y, og, hg, vw, yv, xv, L)
+    got = CL.launch_cull(*ops, mask, L, tile)
+    torch.cuda.synchronize()
+    f8, g8 = F // 8, G // 8
+    part = [ops[0][:f8], ops[1][:f8], ops[2][:g8], ops[3][:g8], ops[4][:f8], ops[5][:f8], ops[6], ops[7][:f8]]
+    want, plain_ms = cuda_timed(lambda: CL.plain_cull(*part, mask[:f8], L, tile))
+    err = 0.0
+    for nm, i in (("v", 0), ("dh", 1), ("gx_dh", 3)):
+        a, b = got[i][:f8], want[i]
+        require(torch.allclose(a, b, rtol=1e-6, atol=1e-7), f"dist_loss_cull {nm} vs plain: {(a - b).abs().max().item()}")
+        err = max(err, (a - b).abs().max().item())
+    require(scatter_close(got[2][:f8], want[2]), f"dist_loss_cull gx_do vs plain: {(got[2][:f8] - want[2]).abs().max().item()}")
+    err = max(err, (got[2][:f8] - want[2]).abs().max().item())
+    bit = all(torch.equal(got[i][:f8], want[i]) for i in (0, 1, 3))
+    del want, part
+    print(f"dist_loss_cull F={f8} P1={P1} P2={P2} y_group={L}: plain within tolerance (max abs err {err}; "
+          f"v, dh, gx_dh bit-equal: {bit})", flush=True)
+    full = CL.launch(*ops, L)
+    torch.cuda.synchronize()
+    live = xv & yv.any(dim=1).repeat_interleave(L)
+    for nm, i in (("v", 0), ("dh", 1), ("gx_dh", 3)):
+        require(torch.equal(got[i][live], full[i][live]), f"dist_loss_cull and dist_loss {nm} differ on live frames")
+    require(scatter_close(got[2][live], full[2][live]), "dist_loss_cull and dist_loss gx_do differ on live frames")
+    require(all(bool((a[~live] == 0).all()) for a in got), "dist_loss_cull: a frame that searched nothing is not zero")
+    del full
+    pairs = kept_pairs(mask, yv, tile, L, P1)
+    run, cand = mask_shares(mask, xv)
+    print(f"dist_loss_cull: v, dh, gx_dh bit-equal to dist_loss on the {int(live.sum())} live frames with a "
+          f"valid point (gx_do within 1e-5 per frame), zeros elsewhere; mask (tile {tile}) over the "
+          f"{int(xv.sum())} x_valid frames: run share {run:.4f}, candidate share {cand:.4f}; {pairs:.6g} pairs",
+          flush=True)
+    n_bytes = 2 * x.numel() * 4 + y.numel() * 4 + F * P2 * 8 + F * P1 * 8 + F * P1 * 24 + mask.numel() * 4
+    b, by = bound_ms(n_bytes, pairs)
+    out["dist_loss_cull"] = dict(
+        kernel=CL.CULL_KERNEL, max_abs_err=err, shape=[F, P1, P2], run_share=run, candidate_share=cand,
+        ms=cuda_time_ms(lambda: CL.launch_cull(*ops, mask, L, tile), reps=3),
+        plain_ms=8 * plain_ms, library_ms=None, bound_ms=b, bound_by=by,
+        mask_ms=cuda_time_ms(lambda: CL.region_cull_mask(x, y, yv, tile, L, xv), reps=3),
+        all_pairs_ms=cuda_time_ms(lambda: CL.launch(*ops, L), reps=3),
+    )
+    o = out["dist_loss_cull"]
+    print(f"dist_loss_cull F={F} P1={P1} P2={P2}: ms={o['ms']:.4f} plain_ms={o['plain_ms']:.3f} library_ms=none "
+          f"bound_ms={b:.4f} ({by}) mask_ms={o['mask_ms']:.4f} dist_loss on the same operands "
+          f"ms={o['all_pairs_ms']:.4f}; plain_ms: 8 x the time on 1/8 of the frames", flush=True)
+    del x, n, y, yv, xv, og, hg, vw, ops, got, mask, live
+    torch.cuda.empty_cache()
+    return out
+
+
 def _train_batch(bs: int, L: int, nobj: int, P: int, seed: int, clip, device):
     """A collated synthetic batch with CLIP text features, on `device`."""
     from oakink2_tamf_tpu_torch.data.collate import SegmentCollate
@@ -574,7 +680,9 @@ def _g_training(device, cfg, dist_impl: str, seed: int = 0):
 
 def small_train_parity() -> None:
     """A small G train step on the GPU (kernels) and on the CPU (plain
-    versions): the same weights, batch, t and noise, dropout 0. Loss within
+    versions), on the fused, composed and fused_cull routes (#9 launches
+    once on the GPU, never on the CPU): the same weights, batch, t and
+    noise, dropout 0. Loss within
     rtol 1e-4; each parameter's clipped gradient within 2e-3 of its norm
     (+1e-6): fp32 GPU vs CPU matmul order through MANO, the kernels' atomics
     and a 1-layer transformer."""
@@ -583,19 +691,24 @@ def small_train_parity() -> None:
 
     from oakink2_tamf_tpu_torch.models.clip_text import FrozenClipText
     from oakink2_tamf_tpu_torch.models.mdm_g import MDMConfig
+    from oakink2_tamf_tpu_torch.ops import chamfer_loss as CL
 
     cfg = MDMConfig(latent_dim=32, ff_size=64, num_layers=1, num_heads=4, dropout=0.0)
     rng = np.random.default_rng(6)
     noise = torch.from_numpy(rng.normal(size=(4, 16, 99)).astype(np.float32))
     t = torch.tensor([0, 10, 500, 999])
-    for impl in ("fused", "composed"):
+    for impl in ("fused", "composed", "fused_cull"):
         res = {}
         for dev in ("cuda", "cpu"):
             clip = FrozenClipText(device=dev)
             db = _train_batch(4, 16, 2, 512, seed=5, clip=clip, device=dev)
             db.update(t=t.to(dev), t_weights=torch.ones(4, device=dev))
             state, step, _ = _g_training(torch.device(dev), cfg, impl)
+            before = CL.CULL_KERNEL.launches
             m = step(state, db, noise=noise.to(dev))
+            if impl == "fused_cull":
+                ran = CL.CULL_KERNEL.launches - before
+                require(ran == (dev == "cuda"), f"small train step (fused_cull, {dev}): {ran} dist_loss_cull launches")
             res[dev] = (float(m["loss"]), {k: p.grad.cpu() for k, p in state.model.named_parameters()})
         la, lb = res["cuda"][0], res["cpu"][0]
         require(abs(la - lb) <= 1e-4 * abs(lb), f"train step {impl}: GPU loss {la} vs CPU {lb}")
@@ -608,14 +721,19 @@ def small_train_parity() -> None:
               f"worst relative grad diff {worst:.2e}", flush=True)
 
 
-def train_main_path():
+def train_main_path(dist_impl: str = "auto", state=None, db=None):
     """G training at full width: arch_mdm_l, batch 64 x 160 frames x 4
-    objects x 8192 points, 1000-step cosine schedule, fused dist route; one
-    warm-up step, then 3 timed steps with the launch counts set to 0 just
-    before; then the split of a step on the same batch."""
+    objects x 8192 points, 1000-step cosine schedule, on `dist_impl`
+    ("auto" = the fused route builds the model and batch; "fused_cull"
+    reuses them); one warm-up step, then 3 timed steps with the launch
+    counts set to 0 just before: #6 (GT side) and the route's loss kernel
+    (#8, or #9 on fused_cull) once per step, #7 never; then the split of a
+    step on the same batch, with, on fused_cull, the mask stage and #9 and
+    #8 alone on the step's own operands and the mask's shares there."""
     import torch
 
     from oakink2_tamf_tpu_torch.core import diffusion as D
+    from oakink2_tamf_tpu_torch.core import geometry as TG
     from oakink2_tamf_tpu_torch.core import transforms as T
     from oakink2_tamf_tpu_torch.models import losses as LL
     from oakink2_tamf_tpu_torch.models.clip_text import FrozenClipText
@@ -623,26 +741,34 @@ def train_main_path():
     from oakink2_tamf_tpu_torch.models.refine_r import batch_recover_mano
     from oakink2_tamf_tpu_torch.ops import chamfer_loss as CL
     from oakink2_tamf_tpu_torch.ops import chamfer_signed as CS
+    from oakink2_tamf_tpu_torch.parallel import train as PT
 
     dev = torch.device("cuda")
+    cull = dist_impl == "fused_cull"
+    label = f"train main path ({'fused_cull' if cull else 'fused'})"
     t0 = time.perf_counter()
-    clip = FrozenClipText(device=dev)
-    db = _train_batch(TRAIN_BS, TRAIN_L, TRAIN_NOBJ, TRAIN_P, seed=11, clip=clip, device=dev)
-    state, step, mano = _g_training(dev, MDMConfig.arch_mdm_l(), "auto")
-    gen = torch.Generator(device=dev).manual_seed(0)
+    if state is None:
+        clip = FrozenClipText(device=dev)
+        db = _train_batch(TRAIN_BS, TRAIN_L, TRAIN_NOBJ, TRAIN_P, seed=11, clip=clip, device=dev)
+        state, step, mano = _g_training(dev, MDMConfig.arch_mdm_l(), dist_impl)
+    else:
+        mano, assets = _r_geometry(dev)
+        step = PT.make_g_train_step(D.tamf_schedule(1000).to(dev), mano, assets, LL.ExtraLossConfig(),
+                                    dist_impl=dist_impl)
+    gen = torch.Generator(device=dev).manual_seed(2 if cull else 0)
     torch.cuda.synchronize()
-    print(f"train main path: batch + model {time.perf_counter() - t0:.2f} s "
+    print(f"{label}: batch + model {time.perf_counter() - t0:.2f} s "
           f"({sum(p.numel() for p in state.model.parameters())} parameters)", flush=True)
     t0 = time.perf_counter()
     step(state, db, generator=gen)
     torch.cuda.synchronize()
-    print(f"train main path: warm-up step {time.perf_counter() - t0:.3f} s", flush=True)
+    print(f"{label}: warm-up step {time.perf_counter() - t0:.3f} s", flush=True)
 
     before = [p.detach().clone() for p in state.model.parameters()]
     torch.cuda.reset_peak_memory_stats()
-    kernels = {"nn_signed": CS.KERNEL, "nn_signed_bwd": CS.BWD_KERNEL, "dist_loss": CL.KERNEL}
-    for k in kernels.values():
-        k.launches = 0
+    kernels = {"nn_signed": CS.KERNEL, "nn_signed_bwd": CS.BWD_KERNEL, "dist_loss": CL.KERNEL,
+               "dist_loss_cull": CL.CULL_KERNEL}
+    _zero_counts(kernels)
     times, losses = [], []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -653,19 +779,23 @@ def train_main_path():
     counts = {name: k.launches for name, k in kernels.items()}
     peak = torch.cuda.max_memory_allocated() / 2**30
     step_s = sum(times) / len(times)
-    print(f"train main path (fused): steps {[round(x, 4) for x in times]} s, mean {step_s:.4f} s = "
+    print(f"{label}: steps {[round(x, 4) for x in times]} s, mean {step_s:.4f} s = "
           f"{TRAIN_BS / step_s:.3f} samples/s; losses {losses}; peak memory {peak:.2f} GiB; "
           f"launches {counts}", flush=True)
-    require(all(v == v and abs(v) < float("inf") for v in losses), "non-finite training loss")
-    require(any(not torch.equal(a, b) for a, b in zip(before, state.model.parameters())), "parameters unchanged")
-    require(counts["nn_signed"] == 3, f"nn_signed launched {counts['nn_signed']} times in 3 steps")
-    require(counts["dist_loss"] == 3, f"dist_loss launched {counts['dist_loss']} times in 3 steps")
+    require(all(v == v and abs(v) < float("inf") for v in losses), f"{label}: non-finite training loss")
+    require(any(not torch.equal(a, b) for a, b in zip(before, state.model.parameters())),
+            f"{label}: parameters unchanged")
+    loss_kernel, other = ("dist_loss_cull", "dist_loss") if cull else ("dist_loss", "dist_loss_cull")
+    require(counts["nn_signed"] == 3, f"{label}: nn_signed launched {counts['nn_signed']} times in 3 steps")
+    require(counts[loss_kernel] == 3, f"{label}: {loss_kernel} launched {counts[loss_kernel]} times in 3 steps")
+    require(counts[other] == 0 and counts["nn_signed_bwd"] == 0, f"{label}: launches {counts}")
     del before
 
     # where the step's time goes, each piece alone on the same batch
     model, sched = state.model, D.tamf_schedule(1000).to(dev)
     cond = {k: db[k] for k in ("text_emb", "hand_side", "shape", "obj_traj", "obj_embedding", "obj_mask")}
     t = torch.randint(0, 1000, (TRAIN_BS,), device=dev, generator=gen)
+    vw = torch.rand(778, device=dev)
 
     def g_fwd_bwd():
         model.zero_grad(set_to_none=True)
@@ -686,21 +816,43 @@ def train_main_path():
         with torch.no_grad():
             LL._per_object_signed(verts, normals, transf, db["obj_points"])
 
-    def fused_pass():
+    def loss_pass():
         v = verts.clone().requires_grad_(True)
-        do_f, dh_f = LL._dist_sums_fused(v, normals, transf, db["obj_points"], o2h_g, h2o_g,
-                                         torch.rand(778, device=dev), seq_mask=db["mask"],
-                                         obj_mask=db["obj_mask"])
+        do_f, dh_f = LL._dist_sums_fused(v, normals, transf, db["obj_points"], o2h_g, h2o_g, vw,
+                                         seq_mask=db["mask"], obj_mask=db["obj_mask"], region_cull=cull,
+                                         x_perm=mano.template_perm if cull else None)
         (do_f.sum() + dh_f.sum()).backward()
 
     split = {
         "G forward+backward": cuda_time_ms(g_fwd_bwd, reps=3),
         "MANO with normals (one hand batch)": cuda_time_ms(mano_normals, reps=3),
         "GT pass (nn_signed + prep)": cuda_time_ms(gt_pass, reps=2),
-        "fused pass (dist_loss fwd + bwd + prep)": cuda_time_ms(fused_pass, reps=2),
-        "optimizer (clip + AdamW + LR)": cuda_time_ms(state.optimizer.step, reps=3),
+        ("fused_cull pass (perm + mask + dist_loss_cull fwd + bwd + prep)" if cull
+         else "fused pass (dist_loss fwd + bwd + prep)"): cuda_time_ms(loss_pass, reps=2),
     }
-    print("train step split (ms, each alone on the same batch): "
+    if cull:
+        # the route's own operands: the hand in the canonical frames, permuted
+        with torch.no_grad():
+            x, n, y = LL._canonical_operands(verts, normals, transf, db["obj_points"])
+        xv = ((db["mask"] > 0)[:, None, :] & db["obj_mask"].to(torch.bool)[:, :, None]).reshape(-1)
+        perm = torch.as_tensor(mano.template_perm, device=dev)
+        x, n = x[:, perm].contiguous(), n[:, perm].contiguous()
+        tile = TG._clamp_tile(2048, TRAIN_P)
+        mask = CL.region_cull_mask(x, y, None, tile, TRAIN_L, xv)
+        ops = CL.prepare(x, n, y, o2h_g.reshape(-1, TRAIN_P), h2o_g.reshape(-1, 778)[:, perm], vw[perm],
+                         None, xv, TRAIN_L)
+        run, cand = mask_shares(mask, xv)
+        pairs = kept_pairs(mask, torch.ones(y.shape[:2], dtype=torch.bool, device=dev), tile, TRAIN_L)
+        print(f"{label}: the step's mask (tile {tile}) over its {int(xv.sum())} x_valid frames: run share "
+              f"{run:.4f}, candidate share {cand:.4f}; {pairs:.6g} pairs kept of "
+              f"{float(xv.sum()) * 778 * TRAIN_P:.6g}", flush=True)
+        split["mask stage (region_cull_mask)"] = cuda_time_ms(
+            lambda: CL.region_cull_mask(x, y, None, tile, TRAIN_L, xv), reps=3)
+        split["dist_loss_cull alone"] = cuda_time_ms(lambda: CL.launch_cull(*ops, mask, TRAIN_L, tile), reps=3)
+        split["dist_loss alone on the same operands"] = cuda_time_ms(lambda: CL.launch(*ops, TRAIN_L), reps=3)
+        del x, n, y, ops, mask
+    split["optimizer (clip + AdamW + LR)"] = cuda_time_ms(state.optimizer.step, reps=3)
+    print(f"{label} step split (ms, each alone on the same batch): "
           + "; ".join(f"{k} {v:.3f}" for k, v in split.items()), flush=True)
     del verts, normals, transf, o2h_g, h2o_g
     torch.cuda.empty_cache()
@@ -747,8 +899,10 @@ def composed_route(state, db):
     return counts
 
 
-def entry_point() -> None:
-    """launch/train_g.main on the synthetic smoke config, on the card."""
+def entry_point(dist_impl: str = "auto") -> None:
+    """launch/train_g.main on the synthetic smoke config, on the card, with
+    --train.dist_impl `dist_impl`: #6 and the route's loss kernel (#8, or
+    #9 on fused_cull) once per step, the other loss kernel never."""
     import torch
 
     from oakink2_tamf_tpu_torch.launch import train_g
@@ -756,17 +910,20 @@ def entry_point() -> None:
     from oakink2_tamf_tpu_torch.ops import chamfer_signed as CS
 
     root = os.path.dirname(os.path.abspath(__file__))
-    CS.KERNEL.launches = CL.KERNEL.launches = 0
+    loss, other = (CL.CULL_KERNEL, CL.KERNEL) if dist_impl == "fused_cull" else (CL.KERNEL, CL.CULL_KERNEL)
+    CS.KERNEL.launches = loss.launches = other.launches = 0
     t0 = time.perf_counter()
-    state = train_g.main(["--cfg", os.path.join(root, "config/synthetic_smoke.yml"), "--exp_id", "chip_smoke"])
+    state = train_g.main(["--cfg", os.path.join(root, "config/synthetic_smoke.yml"), "--exp_id",
+                          f"chip_smoke_{dist_impl}", "--train.dist_impl", dist_impl])
     torch.cuda.synchronize()
     require(state.step == 4, f"train_g.main took {state.step} steps, expected 4")
     require(all(torch.isfinite(p).all() for p in state.model.parameters()), "train_g.main: non-finite weights")
     require(next(state.model.parameters()).is_cuda, "train_g.main did not run on the card")
-    print(f"train_g.main (synthetic_smoke.yml, cuda): 2 epochs, {state.step} steps in "
-          f"{time.perf_counter() - t0:.2f} s; launches nn_signed {CS.KERNEL.launches} "
-          f"dist_loss {CL.KERNEL.launches}", flush=True)
-    require(CS.KERNEL.launches == 4 and CL.KERNEL.launches == 4, "train_g.main did not run the kernels")
+    print(f"train_g.main (synthetic_smoke.yml, cuda, dist_impl {dist_impl}): 2 epochs, {state.step} steps in "
+          f"{time.perf_counter() - t0:.2f} s; launches nn_signed {CS.KERNEL.launches} {loss.name} "
+          f"{loss.launches} {other.name} {other.launches}", flush=True)
+    require(CS.KERNEL.launches == 4 and loss.launches == 4 and other.launches == 0,
+            f"train_g.main (dist_impl {dist_impl}) did not run the route's kernels")
 
 
 def gt_cache_path() -> None:
@@ -1928,7 +2085,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}", flush=True)
 
     kernels = [NN.KERNEL, CU.KERNEL, CS.KERNEL, CS.BWD_KERNEL, CL.KERNEL,
-               NN.DVEC_KERNEL, CU.DVEC_KERNEL, HB.KERNEL, *CC.KERNELS]
+               NN.DVEC_KERNEL, CU.DVEC_KERNEL, HB.KERNEL, *CC.KERNELS, CL.CULL_KERNEL]
     t0 = time.perf_counter()
     _build.build_all(kernels)
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
@@ -1942,6 +2099,8 @@ def main() -> int:
     kstats = check_kernels()
     phase("training kernels")
     kstats.update(check_training_kernels())
+    phase("fused_cull kernel")
+    kstats.update(check_cull_loss_kernel())
     phase("R kernels")
     kstats.update(check_r_kernels())
     phase("cluster kernels")
@@ -1956,12 +2115,16 @@ def main() -> int:
     small_r_cluster_parity()
     phase("training main path (fused)")
     state, db, train_counts, _ = train_main_path()
+    phase("training main path (fused_cull)")
+    state, db, fc_counts, _ = train_main_path("fused_cull", state, db)
     phase("composed route")
     composed_counts = composed_route(state, db)
     del state, db
     torch.cuda.empty_cache()
     phase("entry point")
     entry_point()
+    phase("entry point, fused_cull")
+    entry_point("fused_cull")
     phase("gt_geom cache")
     gt_cache_path()
     phase("R training main path (cull route)")
@@ -1985,12 +2148,13 @@ def main() -> int:
     phase("serving main path, all-pairs route")
     nn_counts, _ = main_path(2048, "50", "h2o_nn", "main path (all-pairs route, 2048 points)")
     # each kernel's count from the path that runs it: serving for #1/#2, the
-    # fused G training path for #6/#8, the composed route for #7, the R
-    # training paths for #3 (cull) and #4 (all-pairs), the grad_y path for
-    # #5, the R cluster route for #10/#11, the signed cluster entry point
-    # for #12/#13
+    # fused G training path for #6/#8, its fused_cull route for #9, the
+    # composed route for #7, the R training paths for #3 (cull) and #4
+    # (all-pairs), the grad_y path for #5, the R cluster route for #10/#11,
+    # the signed cluster entry point for #12/#13
     launches = {"h2o_nn": nn_counts["h2o_nn"], "h2o_cull": cull_counts["h2o_cull"],
                 "nn_signed": train_counts["nn_signed"], "dist_loss": train_counts["dist_loss"],
+                "dist_loss_cull": fc_counts["dist_loss_cull"],
                 "nn_signed_bwd": composed_counts["nn_signed_bwd"],
                 "h2o_cull_dvec": r_counts["h2o_cull_dvec"], "h2o_nn_dvec": r_ap_counts["h2o_nn_dvec"],
                 "h2o_nn_bwd": gy_counts["h2o_nn_bwd"],

@@ -30,6 +30,14 @@ from ..ops import chamfer_cluster, chamfer_cull, chamfer_h2o_bwd, chamfer_nn, ch
 
 CULL_MIN_P2 = 4096
 
+
+def _clamp_tile(chunk: int, p2: int) -> int:
+    """The y tile of a tiled route (JAX core/geometry.py:184-188): at least
+    512 points, at most the point count rounded up to 128, else `chunk`
+    (`train.chunk`). The region-culled loss tiles its mask with it."""
+    return max(512, min(chunk, -(-p2 // 128) * 128))
+
+
 # dense {0, +-1} corner-difference and incidence operators per (faces, V,
 # device): D1/D2 [F, V] map verts to the two edge vectors, A [V, F] sums
 # face normals into vertices. Bounded: one entry per hand side and device.

@@ -1,5 +1,6 @@
 """Config-entry registration shared by the launch CLIs (copy of
-oakink2_tamf_tpu/launch/param.py, plus `runtime.device`; mirrors reference
+oakink2_tamf_tpu/launch/param.py, plus `runtime.device` and the
+`fused_cull` choice of `train.dist_impl`; mirrors reference
 launch/param/{base,mano,model,loss,loss_refine}.py — the schema, not the
 code). The same YAMLs drive both packages; entries about the TPU (chunk,
 h2o_backend, remat, compute_dtype) are accepted and documented where the
@@ -76,12 +77,13 @@ def reg_train_param(reg: ConfigRegistry, default_epochs: int = 400) -> None:
     reg.register("schedule_sampler", prefix="train", category=str, default="uniform",
                  choices=["uniform", "loss-second-moment"])
     reg.register("chunk", prefix="train", category=int, default=2048,
-                 desc="chamfer streaming tile (points per VMEM-resident block)")
+                 desc="object points per tile of the fused_cull route's region-cull mask")
     reg.register("dist_impl", prefix="train", category=str, default="auto",
-                 choices=["auto", "fused", "composed"],
-                 desc="G dist_h/dist_o route: fused = single-pass loss kernel "
-                      "(ops/chamfer_loss; auto picks it on TPU), composed = "
-                      "point2point_signed + XLA loss math (the parity oracle)")
+                 choices=["auto", "fused", "composed", "fused_cull"],
+                 desc="G dist_h/dist_o route: fused (= auto) = single-pass loss kernel "
+                      "(ops/chamfer_loss), fused_cull = the same with the region-cull "
+                      "mask and the culled kernel, composed = point2point_signed + "
+                      "PyTorch loss math")
     reg.register("h2o_backend", prefix="train", category=str, default="auto",
                  choices=["auto", "cull", "exact", "pallas", "cluster", "xla"],
                  desc="h2o NN route: auto = exact kernels (the bounds-culled "

@@ -7,9 +7,11 @@ launch/train.py workflow) on one device.
 The YAMLs are the JAX package's. The device is `runtime.device` ("cuda" by
 default; without a GPU the run raises unless told "cpu").
 `train.data.cache_gt_geom` precomputes the GT side of the extra loss once
-per segment (data/target_cache.GTGeomCache). Not ported yet: the real-data
-segments (`data.synthetic` must be true), the profiler trace hook, and the
-`train.chunk` tile (the CUDA kernels need none).
+per segment (data/target_cache.GTGeomCache). `train.dist_impl fused_cull`
+takes the region-culled loss kernel, its mask tiled at `train.chunk`
+points (the other routes' kernels take no tile). Not ported yet: the
+real-data segments (`data.synthetic` must be true) and the profiler trace
+hook.
 """
 
 from __future__ import annotations
@@ -174,7 +176,8 @@ def main(argv=None) -> PT.TrainState:
         _logger.info("reloaded ckpt from %s at step %d", train_cfg["reload_ckpt_model_filepath"], state.step)
 
     step_fn = PT.make_g_train_step(
-        sched, mano_stack, assets, extra_cfg, dist_impl=str(train_cfg.get("dist_impl", "auto"))
+        sched, mano_stack, assets, extra_cfg, chunk=int(train_cfg.get("chunk", 2048)),
+        dist_impl=str(train_cfg.get("dist_impl", "auto")),
     )
     from ..core.schedule_sampler import create_named_schedule_sampler
 

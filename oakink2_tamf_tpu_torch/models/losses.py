@@ -9,13 +9,17 @@ Reduction quirks kept from the reference, as the JAX package keeps them:
 
 The dist_h / dist_o terms run per object in the object's canonical frame:
 the hand moves into it (x' = R^T (v - t)) and one canonical cloud serves
-all L frames of a (sample, object) (y_group = L). Two routes for the
+all L frames of a (sample, object) (y_group = L). Three routes for the
 predicted hand, the same math in another summation order:
 - "fused" (and "auto", the route the TPU takes): the fused loss kernel
   (ops/chamfer_loss.py), value and x-gradient in one pass;
+- "fused_cull": the same with the region-cull mask and the culled loss
+  kernel, on the template-permuted hand (the mask tiled at
+  core/geometry._clamp_tile(chunk, P) points); the permutation can move a
+  far column's first-min row on a near-tie, and with it that column's sign
+  (oakink2_tamf_tpu/ops/chamfer_loss.py:14-21);
 - "composed": the signed pair (core/geometry.point2point_signed, kernels in
   ops/chamfer_signed.py) and the loss arithmetic in PyTorch.
-"fused_cull" needs kernel #9 (`_dist_loss_cull_kernel`), not ported yet.
 
 GrabNet contact assets (edge list, per-vertex contact weights) load from
 the configured .npy files; without them, deterministic synthetic stand-ins.
@@ -138,11 +142,13 @@ def _per_object_signed(verts, normals, transf, obj_points):
     return o2h.reshape(bs, nobj, L, P), h2o.reshape(bs, nobj, L, vh)
 
 
-def _dist_sums_fused(verts, normals, transf, obj_points, o2h_g, h2o_g, vw2,
-                     seq_mask=None, obj_mask=None):
+def _dist_sums_fused(verts, normals, transf, obj_points, o2h_g, h2o_g, vw2, chunk: int = 2048,
+                     seq_mask=None, obj_mask=None, region_cull: bool = False, x_perm=None):
     """Per-frame sums (do_f, dh_f), both [bs, nobj, L], from the fused loss
-    kernel. Mask-padded frames and padded object slots are skipped in the
-    kernel (x_valid) and come out zero: the loss weights them by zero."""
+    kernel, or with region_cull from the culled one (rows reordered by
+    x_perm, the mask tiled at _clamp_tile(chunk, P) points). Mask-padded
+    frames and padded object slots are skipped in the kernel (x_valid) and
+    come out zero: the loss weights them by zero."""
     bs, nobj, L = transf.shape[:3]
     P = obj_points.shape[2]
     vh = verts.shape[2]
@@ -155,7 +161,8 @@ def _dist_sums_fused(verts, normals, transf, obj_points, o2h_g, h2o_g, vw2,
               else torch.ones((bs, nobj, 1), dtype=torch.bool, device=dev))
         x_valid = (fm & om).expand(bs, nobj, L).reshape(bs * nobj * L)
     do_f, dh_f = CL.chamfer_dist_loss(
-        x, n, y, o2h_g.reshape(-1, P), h2o_g.reshape(-1, vh), vw2, y_group=L, x_valid=x_valid
+        x, n, y, o2h_g.reshape(-1, P), h2o_g.reshape(-1, vh), vw2, y_group=L,
+        tile=G._clamp_tile(chunk, P), x_valid=x_valid, region_cull=region_cull, x_perm=x_perm,
     )
     return do_f.reshape(bs, nobj, L), dh_f.reshape(bs, nobj, L)
 
@@ -187,18 +194,15 @@ def interaction_segment_extra_loss(
     model_output: torch.Tensor,  # [bs, L, 99] predicted pose_repr
     batch: dict[str, Any],
     *,
+    chunk: int = 2048,
     gt_geom: dict[str, torch.Tensor] | None = None,
     dist_impl: str = "auto",
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """G's geometric losses (ref extra_loss.py:85-197), batched. Pass `gt_geom`
-    (from extra_loss_gt_geometry) to reuse a precomputed GT side."""
+    (from extra_loss_gt_geometry) to reuse a precomputed GT side. `chunk`
+    (train.chunk) sets the mask tile of the "fused_cull" route."""
     if dist_impl not in DIST_IMPLS:
         raise ValueError(f"dist_impl {dist_impl!r} not in {DIST_IMPLS}")
-    if dist_impl == "fused_cull":
-        raise NotImplementedError(
-            "dist_impl='fused_cull' needs the region-culled loss kernel "
-            "(_dist_loss_cull_kernel), which is not ported yet"
-        )
     mask = batch["mask"]  # [bs, L]
     L = mask.shape[1]
     mask_coef = L / torch.clamp_min(torch.sum(mask, dim=1), 1.0)  # [bs]
@@ -231,10 +235,12 @@ def interaction_segment_extra_loss(
         om = obj_mask / num_obj[:, None]  # 1/num_obj weights, 0 for pads
         P = batch["obj_points"].shape[2]
         vh = verts_pred.shape[2]
-        if dist_impl in ("auto", "fused"):
+        if dist_impl in ("auto", "fused", "fused_cull"):
+            cull = dist_impl == "fused_cull"
             do_f, dh_f = _dist_sums_fused(
                 verts_pred, normals_pred, transf, batch["obj_points"],
-                o2h_g, h2o_g, assets.v_weights2, seq_mask=mask, obj_mask=batch["obj_mask"],
+                o2h_g, h2o_g, assets.v_weights2, chunk, seq_mask=mask, obj_mask=batch["obj_mask"],
+                region_cull=cull, x_perm=mano_stack.template_perm if cull else None,
             )
             m3 = mask[:, None, :]  # [bs, 1, L]
             dh = torch.sum(dh_f * m3, dim=2) / (L * vh)  # [bs, nobj]

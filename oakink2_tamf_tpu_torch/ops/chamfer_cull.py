@@ -4,7 +4,9 @@ CUDA kernel, wrapper, plain PyTorch version and launch count.
 Replaces oakink2_tamf_tpu/ops/chamfer_cull.py `_cull_fwd_kernel` (:179;
 `_cull_forward(with_dvec=False)` :261, pallas_call at :307, primal
 `_cull_core` :362-365). `cull_mask` is a copy of that module's `_cull_mask`
-formula (plain XLA there, plain PyTorch here): for hand region r of frame f
+formula (plain XLA there, plain PyTorch here; its region statistics,
+`region_stats`, are shared with the loss's region-cull mask in
+ops/chamfer_loss.py): for hand region r of frame f
 (128 contiguous rows of the template-permuted hand) with centroid c and
 radius rr, and object tile t, with d_t = min_{j in t} |c - y_j| and
 dmin = min_t d_t, the block runs unless d_t - rr > dmin + rr + 1e-3. A
@@ -59,6 +61,42 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+def region_stats(x: torch.Tensor, y: torch.Tensor):
+    """The region statistics of both cull masks (this module's `cull_mask`
+    and ops/chamfer_loss.region_cull_mask), centred on each group's y-mean:
+    (c [G, L*R, 3] centroids and rr [F, R] radii of the 128-row regions of
+    x [F, P1, 3] over their real rows only, y [G, P2, 3] centred points),
+    float32, detached; frame f = g*L + l."""
+    x = x.detach().to(torch.float32)
+    y = y.detach().to(torch.float32)
+    F, P1, _ = x.shape
+    P1p = _round_up(P1, REGION_ROWS)
+    R = P1p // REGION_ROWS
+    xr = torch.nn.functional.pad(x, (0, 0, 0, P1p - P1)).reshape(F, R, REGION_ROWS, 3)
+    wr = (torch.arange(P1p, device=x.device) < P1).to(torch.float32).reshape(R, REGION_ROWS)
+    cnt = torch.clamp_min(wr.sum(dim=1), 1.0)
+    c_fr = (xr * wr[None, :, :, None]).sum(dim=2) / cnt[None, :, None]  # [F, R, 3]
+    rr = torch.sqrt(
+        torch.amax(((xr - c_fr[:, :, None]) ** 2).sum(dim=-1) * wr[None], dim=2)
+    )  # [F, R]
+    yc = y.mean(dim=1, keepdim=True)  # [G, 1, 3]
+    return c_fr.reshape(y.shape[0], -1, 3) - yc, rr, y - yc
+
+
+def centroid_d2(c: torch.Tensor, y: torch.Tensor, y_valid: torch.Tensor | None) -> torch.Tensor:
+    """Squared centroid-to-point distances [g, C, P2] of centroids c
+    [g, C, 3] and centred points y [g, P2, 3] by the expansion, inf at
+    invalid points. Full fp32: the products must not go through TF32."""
+    d2 = (
+        (c * c).sum(dim=-1)[..., None]
+        - 2.0 * torch.bmm(c, y.transpose(1, 2))
+        + (y * y).sum(dim=-1)[:, None, :]
+    )
+    if y_valid is not None:
+        d2 = torch.where(y_valid[:, None, :].to(torch.bool), d2, torch.inf)
+    return d2
+
+
 def cull_mask(
     x: torch.Tensor,  # [F, P1, 3]
     y: torch.Tensor,  # [G, P2, 3]
@@ -75,35 +113,15 @@ def cull_mask(
     G, P2, _ = y.shape
     L = y_group
     T = _round_up(P2, tile) // tile
-    P1p = _round_up(P1, REGION_ROWS)
-    R = P1p // REGION_ROWS
-    x = x.detach().to(torch.float32)
-    y = y.detach().to(torch.float32)
-
-    # region stats over the real rows
-    xr = torch.nn.functional.pad(x, (0, 0, 0, P1p - P1)).reshape(F, R, REGION_ROWS, 3)
-    wr = (torch.arange(P1p, device=x.device) < P1).to(torch.float32).reshape(R, REGION_ROWS)
-    cnt = torch.clamp_min(wr.sum(dim=1), 1.0)
-    c_fr = (xr * wr[None, :, :, None]).sum(dim=2) / cnt[None, :, None]  # [F, R, 3]
-    rr = torch.sqrt(
-        torch.amax(((xr - c_fr[:, :, None]) ** 2).sum(dim=-1) * wr[None], dim=2)
-    )  # [F, R]
+    R = _round_up(P1, REGION_ROWS) // REGION_ROWS
 
     # exact centroid-to-point distances per tile, centred on the group y-mean
-    yc = y.mean(dim=1, keepdim=True)  # [G, 1, 3]
-    y = y - yc
-    cg = c_fr.reshape(G, L * R, 3) - yc
+    cg, rr, y = region_stats(x, y)
     d_tile = torch.empty((G, L * R, T), dtype=torch.float32, device=x.device)
     gs = max(1, _MASK_CHUNK_ELEMS // max(1, L * R * T * tile))
     for g0 in range(0, G, gs):
-        c, yy = cg[g0 : g0 + gs], y[g0 : g0 + gs]
-        d2 = (
-            (c * c).sum(dim=-1)[..., None]
-            - 2.0 * torch.bmm(c, yy.transpose(1, 2))
-            + (yy * yy).sum(dim=-1)[:, None, :]
-        )  # [g, L*R, P2]
-        if y_valid is not None:
-            d2 = torch.where(y_valid[g0 : g0 + gs, None, :].to(torch.bool), d2, torch.inf)
+        d2 = centroid_d2(cg[g0 : g0 + gs], y[g0 : g0 + gs],
+                         None if y_valid is None else y_valid[g0 : g0 + gs])  # [g, L*R, P2]
         d2 = torch.nn.functional.pad(d2, (0, T * tile - P2), value=torch.inf)
         d_tile[g0 : g0 + gs] = torch.sqrt(
             torch.clamp_min(d2.reshape(d2.shape[0], L * R, T, tile).amin(dim=-1), 0.0)

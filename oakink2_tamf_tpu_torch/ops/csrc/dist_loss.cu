@@ -26,10 +26,12 @@
 //        thread keeps 4 columns per pass in registers (o2h_common.cuh).
 //   h2o: h2o_common.cuh's row search with the first-min index kept; the
 //        nearest point's coordinates are one load after the search.
+// The per-point arithmetic of both phases is dist_loss_common.cuh's, which
+// the region-culled twin (dist_loss_cull.cu) shares.
 // The shared atomic adds land in a run-dependent order: gx_do is not
 // bitwise reproducible, compare at rtol.
 
-#include "o2h_common.cuh"
+#include "dist_loss_common.cuh"
 
 __global__ void __launch_bounds__(O2H_THREADS)
 dist_loss_o2h_kernel(const float* __restrict__ x,      // [F, P1, 3]
@@ -69,23 +71,8 @@ dist_loss_o2h_kernel(const float* __restrict__ x,      // [F, P1, 3]
         for (int c = 0; c < O2H_COLS; ++c) {
             const int j = j0 + c * O2H_THREADS + threadIdx.x;
             if (j >= P2) continue;
-            const bool valid = yv[c].x < O2H_INVALID_Y;
-            const float4 xr = xs[best_i[c]];
-            const float dist = sqrtf(fmaxf(best[c], 0.f));
-            const float sgn = o2h_signf(o2h_sign_numer(xr, ns[best_i[c]], yv[c]));
-            const float o = valid ? dist * sgn : 0.f;
-            const float g_o = ogf[j];
-            float w = (g_o < 0.01f && g_o > -0.005f) ? 1.0f : 0.1f;
-            if (o < 0.f) w = 1.5f;  // penetration
-            const float diff = o - g_o;
-            vf[j] = valid ? fabsf(diff) * w : 0.f;
-            const float coef = valid ? w * o2h_signf(diff) * sgn / fmaxf(dist, 1e-12f) : 0.f;
-            if (coef != 0.f) {
-                float* a = acc + 3 * best_i[c];
-                atomicAdd(a + 0, coef * (xr.x - yv[c].x));
-                atomicAdd(a + 1, coef * (xr.y - yv[c].y));
-                atomicAdd(a + 2, coef * (xr.z - yv[c].z));
-            }
+            vf[j] = dist_loss_o2h_column(xs, ns, acc, yv[c], best[c], best_i[c],
+                                         yv[c].x < O2H_INVALID_Y, ogf[j]);
         }
     }
     __syncthreads();
@@ -123,15 +110,7 @@ dist_loss_h2o_kernel(const float* __restrict__ x,      // [F, P1, 3]
     const float4* yg = y + (size_t)g * P2;
     h2o_row_scan(ys, yg, P2, live, x0, x1, x2, best, best_j);
     if (!live) return;
-    const float hd = sqrtf(fmaxf(best, 0.f));
-    const float hgv = fabsf(hg[o]);
-    const float w = vw[row];
-    dh_out[o] = fabsf(hd - hgv) * w;
-    const float cfh = w * o2h_signf(hd - hgv) / fmaxf(hd, 1e-12f);
-    const float4 ya = yg[best_j];
-    gx_dh[3 * o + 0] = cfh * (x0 - ya.x);
-    gx_dh[3 * o + 1] = cfh * (x1 - ya.y);
-    gx_dh[3 * o + 2] = cfh * (x2 - ya.z);
+    dist_loss_h2o_row(dh_out, gx_dh, o, yg, best, best_j, true, x0, x1, x2, hg[o], vw[row]);
 }
 
 extern "C" int dist_loss_launch(const float* x, const float* n, const float4* y,

@@ -120,12 +120,14 @@ def make_g_train_step(
     assets: LL.ContactAssets | None = None,
     extra_cfg: LL.ExtraLossConfig | None = None,
     *,
+    chunk: int = 2048,
     dist_impl: str = "auto",
 ) -> Callable[..., dict[str, torch.Tensor]]:
     """The G train step. With mano_stack, assets and extra_cfg set, the
     geometric extra loss is computed on the model output (the reference's
     loss_callback hook, gd.py:1182). `dist_impl` routes its predicted-side
-    dist pass (models/losses.py).
+    dist pass (models/losses.py); `chunk` (train.chunk) tiles the mask of
+    its "fused_cull" route.
 
     step_fn(state, batch, *, generator=None, noise=None) -> metrics updates
     state in place. `generator` (on the batch's device) draws t when the
@@ -166,7 +168,7 @@ def make_g_train_step(
         if use_extra:
             extra, terms = LL.interaction_segment_extra_loss(
                 mano_stack, assets, extra_cfg, aux["model_output"], batch,
-                gt_geom=gt_geom, dist_impl=dist_impl,
+                chunk=chunk, gt_geom=gt_geom, dist_impl=dist_impl,
             )
             total = total + extra
             metrics.update({f"extra/{k}": v for k, v in terms.items()})

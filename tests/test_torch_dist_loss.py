@@ -155,11 +155,13 @@ def _extra_loss_inputs():
     return batch, model_output
 
 
-@pytest.mark.parametrize("dist_impl", ["fused", "composed"])
+@pytest.mark.parametrize("dist_impl", ["fused", "composed", "fused_cull"])
 def test_extra_loss_matches_jax(dist_impl):
     """interaction_segment_extra_loss, value and gradient with respect to the
-    model output, against the JAX function on the same route (fused in
-    interpret mode), with masked frames and a padded object slot."""
+    model output, against the JAX function on the same route (fused and
+    fused_cull in interpret mode; both packages permute the rows by the same
+    template permutation and tile the mask at 512 points), with masked
+    frames and a padded object slot."""
     batch, model_output = _extra_loss_inputs()
     j_mano = j_stack_mano_models(JM.synthetic_mano_model("right"), JM.synthetic_mano_model("left"))
     j_assets = JLL.load_contact_assets()
@@ -201,13 +203,3 @@ def test_extra_loss_fused_matches_composed():
         out[impl] = (float(v), mo.grad.numpy())
     np.testing.assert_allclose(out["fused"][0], out["composed"][0], rtol=LOSS_RTOL)
     np.testing.assert_allclose(out["fused"][1], out["composed"][1], rtol=LOSS_GRAD_RTOL, atol=LOSS_GRAD_ATOL)
-
-
-def test_fused_cull_is_not_ported():
-    batch, model_output = _extra_loss_inputs()
-    mano = stack_mano_models(M.synthetic_mano_model("right"), M.synthetic_mano_model("left"), "cpu")
-    with pytest.raises(NotImplementedError, match="_dist_loss_cull_kernel"):
-        LL.interaction_segment_extra_loss(
-            mano, LL.load_contact_assets(), LL.ExtraLossConfig(), _t(model_output),
-            {k: _t(v) for k, v in batch.items()}, dist_impl="fused_cull",
-        )

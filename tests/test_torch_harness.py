@@ -24,7 +24,7 @@ from oakink2_tamf_tpu_torch.ops import chamfer_nn as NN
 from oakink2_tamf_tpu_torch.ops import chamfer_signed as CS
 
 KERNELS = (NN.KERNEL, CU.KERNEL, CS.KERNEL, CS.BWD_KERNEL, CL.KERNEL,
-           NN.DVEC_KERNEL, CU.DVEC_KERNEL, HB.KERNEL) + CC.KERNELS
+           NN.DVEC_KERNEL, CU.DVEC_KERNEL, HB.KERNEL) + CC.KERNELS + (CL.CULL_KERNEL,)
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
 PKG = pathlib.Path(oakink2_tamf_tpu_torch.__file__).parent
@@ -351,3 +351,52 @@ def test_cuda_cluster_kernels_match_plain_versions(kernel):
                 assert torch.equal(gy, py)
         if not grad_y:
             assert gy is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [2048, 768])
+def test_cuda_cull_loss_kernel_matches_plain_and_all_pairs(tile):
+    """The culled loss kernel (#9) on the card, on rows in compact regions
+    near a cloud (the mask culls), a ragged and an all-invalid cloud and
+    x_valid=False frames; tile 768 makes the o2h passes of 1024 columns
+    straddle two tiles. Against its plain version: v, dh and gx_dh within
+    the all-pairs kernel's tolerance (a sqrt or a division may differ by an
+    ulp), gx_do per frame within 1e-5 (atomics). Against the all-pairs
+    kernel on the same operands: v, dh, gx_dh equal on live frames whose
+    cloud has a valid point; zeros where the culled kernel searched
+    nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    _device.set_fp32_precision()
+    rng = np.random.default_rng(9)
+    G, L, P2 = 4, 8, 3000
+    F = G * L
+    centers = rng.normal(scale=0.08, size=(F, 7, 3))
+    x = (centers[:, np.minimum(np.arange(778) // 128, 6)] + rng.normal(scale=0.01, size=(F, 778, 3)))
+    y = rng.normal(scale=0.06, size=(G, P2, 3))
+    y[:, P2 // 2 :, 0] += 0.6  # a far half: its tiles hold no row's minimum
+    n = rng.normal(size=(F, 778, 3))
+    yv = np.ones((G, P2), bool)
+    yv[1, 2500:] = False
+    yv[2] = False
+    xv = np.ones(F, bool)
+    xv[::5] = False
+    og = rng.normal(size=(F, P2)) * 0.01
+    hg = np.abs(rng.normal(size=(F, 778))) * 0.01
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).cuda()  # noqa: E731
+    x, y, n, og, hg = t(x), t(y), torch.nn.functional.normalize(t(n), dim=-1), t(og), t(hg)
+    yv, xv = torch.from_numpy(yv).cuda(), torch.from_numpy(xv).cuda()
+    ops = CL.prepare(x, n, y, og, hg, torch.rand(778, device="cuda"), yv, xv, L)
+    mask = CL.region_cull_mask(x, y, yv, tile, L, xv)
+    live = xv & yv.any(dim=1).repeat_interleave(L)
+    assert 0 < float((mask[live] != 0).float().mean()) < 0.8
+    got = CL.launch_cull(*ops, mask, L, tile)
+    want = CL.plain_cull(*ops, mask, L, tile)
+    for i in (0, 1, 3):
+        torch.testing.assert_close(got[i], want[i], rtol=1e-6, atol=1e-7)
+    _assert_scatter_close(got[2], want[2])
+    full = CL.launch(*ops, L)
+    for i in (0, 1, 3):
+        assert torch.equal(got[i][live], full[i][live])
+    _assert_scatter_close(got[2][live], full[2][live])
+    assert all(bool((a[~live] == 0).all()) for a in got)
