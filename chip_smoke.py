@@ -378,6 +378,51 @@ def scatter_mass_close(a, b, mass, rtol: float = 1e-6) -> bool:
     return bool((d <= rtol * mass.flatten(1).norm(dim=1) + 1e-6).all())
 
 
+def h2o_gy_exact(x, y, idx, xr):
+    """The h2o backward's gy (y_group 1) summed in float64, with per element
+    the terms' absolute sum and count: (gy [F, P2, 3], mass [F, P2, 3],
+    n [F, P2, 1]). The plain version's formula, on float64 copies."""
+    import torch
+
+    F, P1, _ = x.shape
+    P2 = y.shape[1]
+    flat = (torch.arange(F, device=x.device)[:, None] * P2 + idx.long()).reshape(-1)
+    t = xr.double()[..., None] * (x.double() - y.double().reshape(-1, 3)[flat].reshape(F, P1, 3))
+    t = torch.where((xr != 0)[..., None], t, 0.0).reshape(-1, 3)
+    zeros = torch.zeros((F * P2, 3), dtype=torch.float64, device=x.device)
+    gy = zeros.clone().index_add_(0, flat, -t)
+    mass = zeros.index_add_(0, flat, t.abs())
+    n = torch.zeros(F * P2, dtype=torch.float64, device=x.device).index_add_(
+        0, flat, (xr != 0).reshape(-1).double())
+    return gy.reshape(F, P2, 3), mass.reshape(F, P2, 3), n.reshape(F, P2, 1)
+
+
+def gy_sum_bound_share(got, exact) -> float:
+    """max over elements of |got - gy| / ((n + 2) u mass), u = 2^-24, with
+    (gy, mass, n) from h2o_gy_exact; at most 1 for any float32 sum of the n
+    terms, in any order, each a product of a difference (two roundings).
+    Atomic additions land in a run-dependent order, so the kernel's gy is
+    held to the bound that every order obeys: a per-frame rtol fails on a
+    frame whose rows all take one point and cancel (an all-invalid cloud).
+    A point with no row must be exactly 0 (share inf otherwise); a missing
+    or doubled term exceeds the bound unless it is below (n + 2) u of its
+    point's mass."""
+    import torch
+
+    gy, mass, n = exact
+    err = (got.double() - gy).abs()
+    bound = (n + 2) * 2.0 ** -24 * mass
+    share = torch.where(bound > 0, err / bound.clamp_min(1e-300), torch.where(err > 0, torch.inf, 0.0))
+    return share.max().item()
+
+
+def cancellation(exact) -> float:
+    """max over frames of ||mass_f|| / ||gy_f||: how far a frame's gy
+    cancels its terms."""
+    gy, mass, _ = exact
+    return (mass.flatten(1).norm(dim=1) / gy.flatten(1).norm(dim=1).clamp_min(1e-300)).max().item()
+
+
 def o2h_mass(x, y, o2h_i, yc):
     """[F, P1, 3]: the scatter of |yc_j (y_j - x_{o2h_i[j]})| onto the rows
     (one cloud per frame): the magnitude that #13's and #7's o2h-side
@@ -1118,11 +1163,16 @@ def check_r_kernels() -> dict[str, dict]:
         px, py = HB.plain(x, yy, idx, xr, grad_y, gl)
         require(torch.equal(gx, px), f"h2o_nn_bwd gx (grad_y={grad_y}) differs from the plain version")
         if grad_y:
-            # atomics sum in a run-dependent order: per-frame norm within 1e-5
-            require(scatter_close(gy, py), f"h2o_nn_bwd gy vs plain: {(gy - py).abs().max().item()}")
+            # atomics sum in a run-dependent order: both within the float32 sum bound
+            ex = h2o_gy_exact(x, yy, idx, xr)
+            share5 = max(gy_sum_bound_share(gy, ex), gy_sum_bound_share(py, ex))
+            require(share5 <= 1.0, f"h2o_nn_bwd gy vs plain: {(gy - py).abs().max().item()}, "
+                    f"{share5} of the float32 sum bound")
             err5 = (gy - py).abs().max().item()
+            del ex
     print(f"h2o_nn_bwd nogy (y_group {L}) and grad_y ({TRAIN_P} points, {TRAIN_P * 12 // 1024} KB "
-          f"accumulator): gx equal, gy within 1e-5 per frame (max abs err {err5})", flush=True)
+          f"accumulator): gx equal, gy and plain within {share5:.4g} of the float32 sum bound (max abs "
+          f"err {err5})", flush=True)
     del x, y, yv, xv, ops, d, dvec, dp, dvp, mask, dc, dvc, dcp, dvcp, xr, gx, gy, px, py, yy, idx
     torch.cuda.empty_cache()
 
@@ -1192,12 +1242,16 @@ def check_r_kernels() -> dict[str, dict]:
     b5, by5 = bound_ms(x.numel() * 4 + F * P1 * 8 + distinct * 12 + F * P1 * 12 + F * P2 * 12, 0)
     gx, gy = HB.launch(x, yy, idx, xr, True, 1)
     px, py = HB.plain(x, yy, idx, xr, True, 1)
-    require(torch.equal(gx, px) and scatter_close(gy, py),
-            f"h2o_nn_bwd differs from the plain version at F={F} P2={P2}: gy {(gy - py).abs().max().item()}")
+    ex = h2o_gy_exact(x, yy, idx, xr)
+    share5 = max(gy_sum_bound_share(gy, ex), gy_sum_bound_share(py, ex))
+    require(torch.equal(gx, px) and share5 <= 1.0,
+            f"h2o_nn_bwd differs from the plain version at F={F} P2={P2}: gy {(gy - py).abs().max().item()}, "
+            f"{share5} of the float32 sum bound")
     err5 = max(err5, (gy - py).abs().max().item())
-    print(f"h2o_nn_bwd F={F} P1={P1} P2={P2} y_group 1: gx equal, gy within 1e-5 per frame "
-          f"(max abs err {(gy - py).abs().max().item()})", flush=True)
-    del gx, gy, px, py
+    print(f"h2o_nn_bwd F={F} P1={P1} P2={P2} y_group 1: gx equal, gy and plain within {share5:.4g} of the "
+          f"float32 sum bound (max abs err {(gy - py).abs().max().item()}; worst frame's sum|terms| / |gy| "
+          f"{cancellation(ex):.4g})", flush=True)
+    del gx, gy, px, py, ex
     out["h2o_nn_bwd"] = dict(
         kernel=HB.KERNEL, max_abs_err=err5, shape=[F, P1, P2],
         ms=cuda_time_ms(lambda: HB.launch(x, yy, idx, xr, True, 1), reps=10),
@@ -1607,8 +1661,9 @@ def check_cluster_kernels() -> dict[str, dict]:
       all 40960 frames: equal on rows of tiles whose certificate is clear,
       never below elsewhere (the overflowed-tile share is reported);
     - #11 without grad_y at y_group 160 (gx equal to the plain version) and
-      with grad_y at 10240 frames x 778 x 2048 per-frame clouds (gx equal,
-      gy within 1e-5 per frame);
+      with grad_y at 10240 frames x 778 x 2048 per-frame clouds (gx equal;
+      gy and the plain version's within the float32 sum bound of the
+      float64 sum, gy_sum_bound_share);
     - #12 and #13 on 640 frames x 778 x 8192 per-frame clouds at k_tiles 0
       and 4: #12 equal to its plain version, and at k_tiles 0 to #6's o2h
       half; #13's gx within 1e-6 of its terms' magnitudes per frame
@@ -1694,12 +1749,16 @@ def check_cluster_kernels() -> dict[str, dict]:
     xrg = torch.randn(xg.shape[:2], device="cuda")
     gx, gy = CC.h2o_topk_backward(xg, yg, ig, xrg, True, 1)
     px, py = HB.plain(xg, yg, ig, xrg, True, 1)
-    require(torch.equal(gx, px) and scatter_close(gy, py),
-            f"h2o_topk_bwd (grad_y) differs from its plain version: gy {(gy - py).abs().max().item()}")
+    ex = h2o_gy_exact(xg, yg, ig, xrg)
+    share11 = max(gy_sum_bound_share(gy, ex), gy_sum_bound_share(py, ex))
+    require(torch.equal(gx, px) and share11 <= 1.0,
+            f"h2o_topk_bwd (grad_y) differs from its plain version: gy {(gy - py).abs().max().item()}, "
+            f"{share11} of the float32 sum bound")
     err11 = (gy - py).abs().max().item()
     print(f"h2o_topk_bwd nogy (F={F}, y_group {L}): gx equal to plain; grad_y (F={xg.shape[0]}, "
-          f"P2={R_ALL_PAIRS_P}): gx equal, gy within 1e-5 per frame (max abs err {err11})", flush=True)
-    del xg, yg, yvg, ig, xrg, gx, gy, px, py
+          f"P2={R_ALL_PAIRS_P}): gx equal, gy and plain within {share11:.4g} of the float32 sum bound "
+          f"(max abs err {err11}; worst frame's sum|terms| / |gy| {cancellation(ex):.4g})", flush=True)
+    del xg, yg, yvg, ig, xrg, gx, gy, px, py, ex
     # rows with a nonzero cotangent read x and their index and gather a y
     # row (each distinct row once); every cotangent is read, every gx written
     live = xr != 0

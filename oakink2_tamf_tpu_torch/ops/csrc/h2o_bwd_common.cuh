@@ -26,7 +26,10 @@
 // compiled out (the TPU's `_nogy` variants).
 //
 // The atomic additions land in an order that changes from run to run, so
-// gy is not bitwise reproducible: compare it at rtol.
+// gy is not bitwise reproducible: compare it with the error bound of a
+// float32 sum in any order, (n + 2) u sum|terms| per element. A per-frame
+// rtol fails on a frame whose rows all take one point and cancel (an
+// all-invalid cloud).
 #pragma once
 
 #include "launch_common.cuh"
