@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result line):
-1. build the CUDA kernels from ops/csrc (one nvcc per source, in parallel);
+1. build the CUDA kernels from ops/csrc (one nvcc per source, in parallel),
+   print ptxas' registers and spills, and the SASS hot loop of #6 and #8
+   (instructions per pair, cuobjdump);
 2. serving kernels: check each against its plain PyTorch version on the
    card at the serving path's shapes (10240 frames = 64 clouds x 160
    frames, 778 hand rows, 2048 / 8192 object points) with ragged y_valid,
@@ -16,8 +18,12 @@ Phases (any failure exits non-zero and prints no result line):
    with a ragged cloud, an all-zero padded slot and x_valid=False frames;
    then time each kernel at the G training shape (40960 frames = batch 64
    x 4 object slots x 160 frames), its plain version on 1/8 of those
-   frames (x 8), and torch.cdist with min/argmin both ways as the signed
-   forward's library yardstick; then the region-culled loss kernel (#9) on
+   frames (x 8; #6's and #8's outputs are held against it there), and
+   torch.cdist with min/argmin both ways as the signed forward's library
+   yardstick; then #6 and #8 on tie scenes (exact duplicate points and rows
+   at the seams of their bidirectional search) at ragged P1 and P2, y_group
+   1 and 8, with an all-invalid cloud and x_valid=False frames, against
+   their plain versions; then the region-culled loss kernel (#9) on
    the same shape with the template permutation and an all-invalid slot:
    against its plain version on 1/8 of the frames, bit-equal to #8 on live
    frames, the mask's run and candidate shares, timed with the mask stage
@@ -95,6 +101,11 @@ import time
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 FLOPS_PER_PAIR = 8  # 3 sub, 3 mul, 2 add per squared distance
+# Issue rate: 132 SMs x 4 schedulers x 32 lanes x 1.98 GHz (H100 SXM boost).
+PEAK_LANE_INSTR_PER_S = 132 * 128 * 1.98e9
+# The least a bidirectional search issues per pair: the pinned distance's 6
+# (3 FADD, 1 FMUL, 2 FFMA) and one minimum update per direction.
+INSTR_PER_PAIR = 8
 
 
 def require(cond: bool, msg: str) -> None:
@@ -135,6 +146,13 @@ def bound_ms(n_bytes: float, n_pairs: float) -> tuple[float, str]:
     t_bytes = n_bytes / PEAK_BYTES_PER_S
     t_ops = n_pairs * FLOPS_PER_PAIR / PEAK_FP32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def issue_floor_ms(n_pairs: float) -> float:
+    """The least time the card's warp schedulers need to issue a pair
+    search's instructions: INSTR_PER_PAIR per pair at the published SM
+    count and boost clock."""
+    return n_pairs * INSTR_PER_PAIR / PEAK_LANE_INSTR_PER_S * 1e3
 
 
 def kernel_inputs(P2: int, G: int = 64, L: int = 160, P1: int = 778, seed: int = 0):
@@ -545,13 +563,19 @@ def check_training_kernels() -> dict[str, dict]:
     # the plain versions are timed on 1/8 of the frames (clouds) and scaled
     # by 8, as the R kernels' are: a full-size plain run takes ~33 s each
     f8, g8 = F // 8, TRAIN_CLOUDS // 8
+    # the plain version's outputs on those frames are held against the
+    # kernel's at this shape too: equal values and first-min indices
+    want, plain_ms = cuda_timed(lambda: CS.plain(ops[0][:f8], ops[1][:f8], ops[2][:g8], ops[3][:g8], L))
+    for nm, a, w in zip(names, fwd, want):
+        require(torch.equal(a[:f8], w), f"nn_signed {nm} differs from the plain version at the G shape")
+    del want
+    print(f"nn_signed F={f8} of {F} P1={P1} P2={P2} y_group={L}: equal to plain", flush=True)
     out["nn_signed"] = dict(
         kernel=CS.KERNEL, max_abs_err=err6, shape=[F, P1, P2],
         ms=cuda_time_ms(lambda: CS.launch(*ops, L), reps=3),
-        plain_ms=8 * cuda_time_ms(lambda: CS.plain(ops[0][:f8], ops[1][:f8], ops[2][:g8], ops[3][:g8], L),
-                                  reps=1, warmup=0),
+        plain_ms=8 * plain_ms,
         library_ms=cuda_time_ms(lambda: library_signed(xc, ops[2][..., :3].contiguous(), L, P1), reps=1),
-        bound_ms=b, bound_by=by,
+        bound_ms=b, bound_by=by, issue_floor_ms=issue_floor_ms(pairs),
     )
     del xc
     h2o_i, o2h_i = fwd[1], fwd[3]
@@ -571,23 +595,214 @@ def check_training_kernels() -> dict[str, dict]:
     live = int(xv.sum())
     b8, by8 = bound_ms(2 * x.numel() * 4 + y.numel() * 4 + F * P2 * 8 + F * P1 * 8 + F * P1 * 24,
                        live * P1 * P2)
+    got = CL.launch(*lops, L)
+    want, plain_ms = cuda_timed(lambda: CL.plain(*(t[:f8] for t in lops[:2]), *(t[:g8] for t in lops[2:4]),
+                                                 lops[4][:f8], lops[5][:f8], lops[6], lops[7][:f8], L))
+    err = 0.0
+    for nm, i in (("v", 0), ("dh", 1), ("gx_dh", 3)):
+        a, w = got[i][:f8], want[i]
+        require(torch.allclose(a, w, rtol=1e-6, atol=1e-7), f"dist_loss {nm} vs plain at the G shape: "
+                f"{(a - w).abs().max().item()}")
+        err = max(err, (a - w).abs().max().item())
+    require(scatter_close(got[2][:f8], want[2]), "dist_loss gx_do vs plain at the G shape: "
+            f"{(got[2][:f8] - want[2]).abs().max().item()}")
+    err8 = max(err8, err, (got[2][:f8] - want[2]).abs().max().item())
+    del got, want
+    print(f"dist_loss F={f8} of {F} P1={P1} P2={P2} y_group={L}: plain within tolerance (max abs err {err})",
+          flush=True)
     out["dist_loss"] = dict(
         kernel=CL.KERNEL, max_abs_err=err8, shape=[F, P1, P2], live_frames=live,
         ms=cuda_time_ms(lambda: CL.launch(*lops, L), reps=3),
-        plain_ms=8 * cuda_time_ms(lambda: CL.plain(*(t[:f8] for t in lops[:2]), *(t[:g8] for t in lops[2:4]),
-                                                   lops[4][:f8], lops[5][:f8], lops[6], lops[7][:f8], L),
-                                  reps=1, warmup=0),
-        library_ms=None, bound_ms=b8, bound_by=by8,
+        plain_ms=8 * plain_ms,
+        library_ms=None, bound_ms=b8, bound_by=by8, issue_floor_ms=issue_floor_ms(live * P1 * P2),
     )
     for name, o in ((k, out[k]) for k in ("nn_signed", "nn_signed_bwd", "dist_loss")):
         lib = "none" if o["library_ms"] is None else f"{o['library_ms']:.3f}"
+        floor = f" issue_floor_ms={o['issue_floor_ms']:.4f}" if "issue_floor_ms" in o else ""
         print(f"{name} F={F} P1={P1} P2={P2}: ms={o['ms']:.4f} plain_ms={o['plain_ms']:.3f} "
-              f"library_ms={lib} bound_ms={o['bound_ms']:.4f} ({o['bound_by']})", flush=True)
+              f"library_ms={lib} bound_ms={o['bound_ms']:.4f} ({o['bound_by']}){floor}", flush=True)
     print(f"dist_loss live frames {live} of {F}; plain_ms of nn_signed and dist_loss: 8 x the time on 1/8 "
           "of the frames", flush=True)
     del x, n, y, xv, og, hg, vw, ops, lops
     torch.cuda.empty_cache()
     return out
+
+
+def sass_inner_loop(kernel) -> dict:
+    """The hot loop of a built kernel's SASS (cuobjdump -sass on its
+    library): of the innermost loops (backward branches) that hold FMULs,
+    the one with the most; an FMUL is one pinned pair distance
+    (h2o_pair_d2's fl(d0 d0)), so its count is the pairs per iteration.
+    Returns the body's instruction count, the count without the blocks
+    that a forward branch skips around a shared atomic (the row merge,
+    which runs only when a vote asks for it), the pairs and the opcode
+    counts of the body."""
+    import collections
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", kernel._paths()[1]], capture_output=True, text=True, check=True).stdout
+
+    def target(op, labels, addr):
+        m = re.search(r"\(?(\.L_x_\d+)\)?", op)
+        h = re.search(r"\b0x([0-9a-f]+)\b", op)
+        return labels.get(m.group(1)) if m else (addr.get(int(h.group(1), 16)) if h else None)
+
+    def opcode(op):
+        return (op.split()[1] if op.startswith("@") else op.split()[0]).split(".")[0]
+
+    insts, labels, best = [], {}, None
+    for ln in text.splitlines() + ["Function : end"]:
+        if "Function :" in ln:  # a new function: score the previous one's loops
+            addr = {a: k for k, (a, _) in enumerate(insts)}
+            loops = []
+            for k, (_, op) in enumerate(insts):
+                tgt = target(op, labels, addr) if opcode(op) == "BRA" else None
+                if tgt is None or tgt > k:
+                    continue
+                body = insts[tgt : k + 1]
+                ops = collections.Counter(opcode(o) for _, o in body)
+                if not ops["FMUL"]:
+                    continue
+                skipped = set()
+                for b, (_, o) in enumerate(body):  # forward branches around an atomic
+                    t = target(o, labels, addr) if opcode(o) == "BRA" else None
+                    if t is not None and tgt + b < t <= k + 1 and any(
+                            opcode(q) == "ATOMS" for _, q in insts[tgt + b + 1 : t]):
+                        skipped.update(range(tgt + b + 1, t))
+                loops.append((tgt, k, {"instructions": len(body), "fast_path": len(body) - len(skipped),
+                                       "pairs": ops["FMUL"], "opcodes": dict(ops)}))
+            for tgt, k, st in loops:  # innermost: no other loop with pairs inside
+                if any(tgt <= t2 and k2 <= k and (t2, k2) != (tgt, k) for t2, k2, _ in loops):
+                    continue
+                if best is None or st["pairs"] > best["pairs"]:
+                    best = st
+            insts, labels = [], {}
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", ln)
+        if m:
+            labels[m.group(1)] = len(insts)
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", ln)
+        if m:
+            insts.append((int(m.group(1), 16), m.group(2).strip()))
+    return best or {"instructions": 0, "fast_path": 0, "pairs": 0, "opcodes": {}}
+
+
+def tie_scene(G: int, L: int, P1: int, P2: int, seed: int):
+    """Operands (x, n, y, yv, xv, og, hg, vw) on the card, made with numpy,
+    whose minima tie exactly in both directions at the seams of the
+    bidirectional search (256 threads x 4 columns per pass, rows in groups
+    of 8):
+    - points: every 7th point has an exact copy at +1 (the next lane),
+      +32 (the next warp), +256 (the thread's next column), +1024 (the next
+      pass), +2048 and +4096, one offset per residue;
+    - rows: rows i + 128 copy rows i in alternate 128-row blocks, every
+      16th row is copied to the next one (the same group) and every 32nd
+      to the one 8 on (the next group); each row keeps its own random
+      normal, so the sign shows which of two equal rows won.
+    Cloud 1 (of 3) has a ragged y_valid, cloud 2 is all-invalid; every 5th
+    frame is x_valid=False. Hand-scale clusters sit inside the clouds."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    F = G * L
+    y = rng.normal(scale=0.05, size=(G, P2, 3))
+    for k, off in enumerate((1, 32, 256, 1024, 2048, 4096)):
+        j = np.arange(k, max(P2 - off, 0), 7)
+        y[:, j + off] = y[:, j]
+    x = rng.normal(scale=0.03, size=(F, P1, 3)) + rng.normal(scale=0.02, size=(F, 1, 3))
+    i = np.arange(max(P1 - 128, 0))
+    i = i[(i // 128) % 2 == 0]
+    x[:, i + 128] = x[:, i]
+    i = np.arange(5, P1 - 1, 16)
+    x[:, i + 1] = x[:, i]
+    i = np.arange(2, P1 - 8, 32)
+    x[:, i + 8] = x[:, i]
+    n = rng.normal(size=(F, P1, 3))
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    yv = np.ones((G, P2), bool)
+    if G > 1:
+        yv[1, rng.integers(0, P2 + 1):] = False
+    if G > 2:
+        yv[2] = False
+    xv = np.ones(F, bool)
+    xv[::5] = False
+    og = rng.normal(size=(F, P2)) * 0.01
+    hg = np.abs(rng.normal(size=(F, P1))) * 0.01
+    vw = rng.random(P1)
+    f32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda()  # noqa: E731
+    return (f32(x), f32(n), f32(y), torch.from_numpy(yv).cuda(), torch.from_numpy(xv).cuda(),
+            f32(og), f32(hg), f32(vw))
+
+
+def has_copy(p, valid):
+    """[B, P] bool: point p[b, k] (of [B, P, 3]) equals another point of its
+    set; with `valid` [B, P], only valid points count, on both sides."""
+    import torch
+
+    out = torch.zeros(p.shape[:2], dtype=torch.bool, device=p.device)
+    for b in range(p.shape[0]):
+        keep = torch.ones(p.shape[1], dtype=torch.bool, device=p.device) if valid is None else valid[b]
+        if not bool(keep.any()):
+            continue
+        _, inv, cnt = torch.unique(p[b][keep], dim=0, return_inverse=True, return_counts=True)
+        out[b, keep] = cnt[inv] > 1
+    return out
+
+
+def check_signed_edges() -> None:
+    """#6 and #8 against their plain versions on tie_scene at ragged sizes:
+    P1 in {1, 37, 778, MAX_ROWS} (#8: its own MAX_ROWS), P2 in {1, 1000,
+    8192, 8193}, y_group 1 and 8 (3 clouds: one ragged, one all-invalid),
+    x_valid=False frames for #8. #6 equal (values and first-min indices),
+    #8 at dist_loss's checks (rtol 1e-6 / atol 1e-7, gx_do per frame);
+    an all-invalid cloud's rows give BIG, never inf."""
+    import torch
+
+    from oakink2_tamf_tpu_torch.ops import chamfer_loss as CL
+    from oakink2_tamf_tpu_torch.ops import chamfer_signed as CS
+
+    t0 = time.perf_counter()
+    names = ("h2o_d", "h2o_i", "o2h_d", "o2h_i", "o2h_dot")
+    err8, ties, cases = 0.0, [0, 0], 0
+    for L in (1, 8):
+        for P1 in (1, 37, 778, CS.MAX_ROWS):
+            for P2 in (1, 1000, 8192, 8193):
+                x, n, y, yv, xv, og, hg, vw = tie_scene(3, L, P1, P2, seed=P1 + P2 + L)
+                where = f"P1={P1} P2={P2} y_group={L}"
+                ops = CS.prepare(x, y, n, yv, L)
+                got = CS.launch(*ops, L)
+                want = CS.plain(*ops, L)
+                for nm, a, w in zip(names, got, want):
+                    require(torch.equal(a, w), f"nn_signed {nm} differs from the plain version at {where}")
+                dead = ~yv.any(dim=1).repeat_interleave(L)
+                require(bool((got[0][dead] == CS.BIG).all()), f"nn_signed: all-invalid rows not BIG at {where}")
+                # minima that tie: a row's nearest point has an exact valid copy,
+                # a valid column's nearest row has an exact copy
+                rows = torch.arange(x.shape[0], device="cuda")[:, None]
+                ties[0] += int(has_copy(ops[2][..., :3], yv).repeat_interleave(L, 0)[rows, got[1].long()][~dead].sum())
+                ties[1] += int((has_copy(ops[0], None)[rows, got[3].long()] & yv.repeat_interleave(L, 0)).sum())
+                cases += 1
+                if P1 > CL.MAX_ROWS:
+                    continue
+                lops = CL.prepare(x, n, y, og, hg, vw, yv, xv, L)
+                got = CL.launch(*lops, L)
+                want = CL.plain(*lops, L)
+                for nm, i in (("v", 0), ("dh", 1), ("gx_dh", 3)):
+                    require(torch.allclose(got[i], want[i], rtol=1e-6, atol=1e-7),
+                            f"dist_loss {nm} vs plain at {where}: {(got[i] - want[i]).abs().max().item()}")
+                require(scatter_close(got[2], want[2]), f"dist_loss gx_do vs plain at {where}")
+                require(all(bool((a[~xv] == 0).all()) for a in got), f"dist_loss: x_valid=False not zero at {where}")
+                err8 = max(err8, *((a - w).abs().max().item() for a, w in zip(got, want)))
+                cases += 1
+    torch.cuda.synchronize()
+    require(min(ties) > 0, f"the tie scenes tie no minimum: {ties}")
+    print(f"nn_signed and dist_loss on the tie scenes: {cases} cases, #6 equal to plain ({ties[0]} h2o and "
+          f"{ties[1]} o2h minima tied), #8 within tolerance (max abs err {err8}), in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def kept_pairs(mask, yv, tile: int, L: int, P1: int = 778) -> float:
@@ -896,6 +1111,16 @@ def train_main_path(dist_impl: str = "auto", state=None, db=None):
         split["dist_loss_cull alone"] = cuda_time_ms(lambda: CL.launch_cull(*ops, mask, TRAIN_L, tile), reps=3)
         split["dist_loss alone on the same operands"] = cuda_time_ms(lambda: CL.launch(*ops, TRAIN_L), reps=3)
         del x, n, y, ops, mask
+    else:
+        # #8 and #6 alone on the step's own operands (33.9% of the rows live)
+        with torch.no_grad():
+            x, n, y = LL._canonical_operands(verts, normals, transf, db["obj_points"])
+        xv = ((db["mask"] > 0)[:, None, :] & db["obj_mask"].to(torch.bool)[:, :, None]).reshape(-1)
+        ops = CL.prepare(x, n, y, o2h_g.reshape(-1, TRAIN_P), h2o_g.reshape(-1, 778), vw, None, xv, TRAIN_L)
+        split["dist_loss alone"] = cuda_time_ms(lambda: CL.launch(*ops, TRAIN_L), reps=3)
+        ops = CS.prepare(x, y, n, None, TRAIN_L)  # the GT pass's #6 on the same canonical operands
+        split["nn_signed alone"] = cuda_time_ms(lambda: CS.launch(*ops, TRAIN_L), reps=3)
+        del x, n, y, ops
     split["optimizer (clip + AdamW + LR)"] = cuda_time_ms(state.optimizer.step, reps=3)
     print(f"{label} step split (ms, each alone on the same batch): "
           + "; ".join(f"{k} {v:.3f}" for k, v in split.items()), flush=True)
@@ -2150,6 +2375,11 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
     for k in kernels:
         print("\n".join(ln for ln in k.ptxas_log.splitlines() if "Used" in ln or "spill" in ln))
+    for k in (CS.KERNEL, CL.KERNEL):  # the bidirectional searches' hot loop
+        st = sass_inner_loop(k)
+        print(f"{k.name} SASS hot loop: {st['instructions']} instructions, {st['fast_path']} without the row "
+              f"merge, {st['pairs']} pairs: {st['fast_path'] / max(st['pairs'], 1):.3f} per pair; "
+              f"{st['opcodes']}", flush=True)
 
     def phase(label):
         print(f"--- {label} (at {time.perf_counter() - t_start:.1f} s)", flush=True)
@@ -2158,6 +2388,8 @@ def main() -> int:
     kstats = check_kernels()
     phase("training kernels")
     kstats.update(check_training_kernels())
+    phase("signed tie and edge cases")
+    check_signed_edges()
     phase("fused_cull kernel")
     kstats.update(check_cull_loss_kernel())
     phase("R kernels")

@@ -17,9 +17,11 @@ the predicted hand never exists outside the kernel. Argmins, sign() and the
 weight selections are constants of the backward (torch-parity convention).
 
 Kernel (csrc/dist_loss.cu): bound, design and the per-point formulas are in
-the source. Bound on this card: 8 flops per (x, y) pair counted once, at
-the H100 SXM's 67 TFLOP/s FP32 (~31 ms at the G training shape, 40960
-frames x 778 rows x 8192 points). x_valid=False frames cost nothing and
+the source; its search is the signed forward's single-pass bidirectional
+one (csrc/bidir_common.cuh), each pair's distance computed once. Bound on
+this card: 8 flops per (x, y) pair counted once, at the H100 SXM's 67
+TFLOP/s FP32 (~31 ms at the G training shape, 40960 frames x 778 rows x
+8192 points). x_valid=False frames cost nothing and
 come out zero; invalid points (y_valid) give zero.
 
 `CULL_KERNEL` (csrc/dist_loss_cull.cu) replaces `_dist_loss_cull_kernel`
@@ -56,7 +58,7 @@ from ._build import Kernel
 
 DIST_EPS = 1e-12  # max(dist, eps) guards of chamfer_loss.py:249 / :304
 INVALID_Y = 5e14  # an invalid point sits at FAR = 1e15 per coordinate
-MAX_ROWS = 1024  # rows, normals and the gx_do accumulator in 48 KB of shared memory
+MAX_ROWS = 1024  # rows, normals, row keys and the gx_do accumulator in 52 KB of shared memory
 REGION_ROWS = CU.REGION_ROWS  # one hand region: 128 rows of the template-permuted hand
 CULL_EPS = 1e-3  # m, the slack of the region-cull bounds (chamfer_loss.py:461)
 

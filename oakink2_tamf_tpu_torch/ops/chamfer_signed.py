@@ -26,7 +26,9 @@ grad_y=False.
 Bounds on this card (H100 SXM, 67 TFLOP/s FP32, 3.35 TB/s): the forward
 is pair work, 8 flops per pair counted once (at the G training shape,
 40960 frames x 778 rows x 8192 points, ~31 ms); the backward is bytes
-(each input once, gx once: ~1.1 ms there). Designs: see the sources.
+(each input once, gx once: ~1.1 ms there). The forward is a single-pass
+bidirectional search (csrc/bidir_common.cuh): each pair's distance is
+computed once and feeds both directions. Designs: see the sources.
 
 On a CUDA tensor the wrappers launch the kernel or raise; on a CPU tensor
 they run the plain version, which repeats the forward kernel's per-pair
@@ -44,7 +46,7 @@ from ._build import Kernel
 
 BIG = NN.BIG
 DIST_EPS = 1e-12  # the TPU VJP's max(dist, eps) guard (chamfer_pallas.py:1017-1018)
-MAX_ROWS = 1536  # rows and normals staged in 48 KB of shared memory (P1 x 32 B)
+MAX_ROWS = 1536  # rows, normals and row keys staged in 60 KB of shared memory (P1 x 40 B)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -139,8 +141,8 @@ def launch(x, n, y4, ctr, y_group: int):
         raise ValueError(f"bad operand shapes x {tuple(x.shape)} n {tuple(n.shape)} y4 {tuple(y4.shape)}")
     if P1 > MAX_ROWS:
         raise ValueError(f"{P1} rows exceed the {MAX_ROWS} the o2h block stages in shared memory")
-    if F * max((P1 + 127) // 128, (P2 + 1023) // 1024) >= 2**31:
-        raise ValueError("too many blocks for one launch")
+    if F >= 2**31:
+        raise ValueError("too many frames for one launch (one block per frame)")
     dev = x.device
     h2o_d = torch.empty((F, P1), dtype=f32, device=dev)
     h2o_i = torch.empty((F, P1), dtype=torch.int32, device=dev)

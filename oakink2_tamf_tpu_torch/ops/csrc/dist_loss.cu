@@ -16,101 +16,100 @@
 // Invalid columns give v = 0 and no gradient. x_valid[f] == 0 frames
 // (mask-padded frames, padded object slots) cost nothing and emit zeros.
 //
-// Bound: floating-point work, 8 flops per (x, y) pair; bytes are far below.
-// Design: the two phases are two kernels launched back to back, each
-// computing its pairs once (2x the bound's pair work, like nn_signed.cu):
-//   o2h: one block of 256 threads per FRAME (not per tile), so the frame's
-//        gx_do accumulator [P1, 3] lives in shared memory beside the staged
-//        rows and normals (34 KB at 778 rows) and is written once: the
-//        scatter is a shared atomic add, never a device-memory one. Each
-//        thread keeps 4 columns per pass in registers (o2h_common.cuh).
-//   h2o: h2o_common.cuh's row search with the first-min index kept; the
-//        nearest point's coordinates are one load after the search.
-// The per-point arithmetic of both phases is dist_loss_common.cuh's, which
-// the region-culled twin (dist_loss_cull.cu) shares.
+// Bound: floating-point work, 8 flops per (x, y) pair of the live frames,
+// counted once; bytes are far below. At the G training shape (35108 live
+// of 40960 frames x 778 rows x 8192 points, 2.24e11 pairs) that is 26.7 ms
+// at the H100 SXM's 67 TFLOP/s FP32. Like nn_signed.cu it is bound by the
+// instructions it issues: at 8 per pair (the pinned distance's 6 and a
+// minimum update per direction) over 33.45e12 lane-instructions/s, an
+// issue floor of 53.5 ms there.
+//
+// Design: one block of 256 threads per frame running bidir_common.cuh's
+// single-pass search (4 columns per thread, rows in groups of 8, 4 blocks
+// per SM: see nn_signed.cu), each pair's distance computed once for both
+// directions. Beside the staged rows, normals and row keys, the frame's
+// gx_do accumulator [P1, 3] lives in shared memory (52 KB at 1024 rows,
+// opted in above 48 KB): after each pass, its columns' integrands and
+// gradient rows go through dist_loss_common.cuh's dist_loss_o2h_column (a
+// shared atomic add per column); after the last pass, the accumulator is
+// written once and each row's key goes through dist_loss_h2o_row. Those
+// two functions are the region-culled twin's (dist_loss_cull.cu),
+// unchanged, so the two agree bit for bit wherever they find the same
+// minimum.
 // The shared atomic adds land in a run-dependent order: gx_do is not
 // bitwise reproducible, compare at rtol.
+//
+// Measured with chip_smoke.py on an NVIDIA H100 80GB HBM3 (power limit
+// 700.00 W) at the G training shape: 101.8-102.6 ms over four runs,
+// 26.0-26.3% of the flop bound and 52.1-52.6% of the issue floor. ptxas: 64
+// registers, 4 bytes spilled (outside the hot loop). SASS of the hot loop:
+// 301 instructions per 32 pairs without the row merge, 9.41 per pair. As
+// for nn_signed.cu, the issue rate reached (~62%) holds it back.
 
+#include "bidir_common.cuh"
 #include "dist_loss_common.cuh"
 
-__global__ void __launch_bounds__(O2H_THREADS)
-dist_loss_o2h_kernel(const float* __restrict__ x,      // [F, P1, 3]
-                     const float* __restrict__ n,      // [F, P1, 3]
-                     const float4* __restrict__ y,     // [G, P2] centred
-                     const float* __restrict__ ctr,    // [G, 3]
-                     const float* __restrict__ og,     // [F, P2] GT signed o2h
-                     const unsigned char* __restrict__ x_valid,  // [F]
-                     float* __restrict__ v_out,        // [F, P2]
-                     float* __restrict__ gx_do,        // [F, P1, 3]
-                     int P1, int P2, int y_group) {
+__global__ void __launch_bounds__(BIDIR_THREADS, 4)
+dist_loss_kernel(const float* __restrict__ x,      // [F, P1, 3]
+                 const float* __restrict__ n,      // [F, P1, 3]
+                 const float4* __restrict__ y,     // [G, P2] centred
+                 const float* __restrict__ ctr,    // [G, 3]
+                 const float* __restrict__ og,     // [F, P2] GT signed o2h
+                 const float* __restrict__ hg,     // [F, P1] GT h2o
+                 const float* __restrict__ vw,     // [P1] contact weights
+                 const unsigned char* __restrict__ x_valid,  // [F]
+                 float* __restrict__ v_out,        // [F, P2]
+                 float* __restrict__ dh_out,       // [F, P1]
+                 float* __restrict__ gx_do,        // [F, P1, 3]
+                 float* __restrict__ gx_dh,        // [F, P1, 3]
+                 int P1, int P2, int y_group) {
     extern __shared__ float4 smem[];
-    float4* xs = smem;
-    float4* ns = smem + P1;
-    float* acc = reinterpret_cast<float*>(smem + 2 * P1);  // [P1 * 3]
+    const int P1r = bidir_rows_padded(P1);
+    float4* xs = smem;                                                                 // [P1r]
+    float4* ns = smem + P1r;                                                           // [P1r]
+    unsigned long long* key = reinterpret_cast<unsigned long long*>(smem + 2 * P1r);  // [P1r]
+    float* acc = reinterpret_cast<float*>(key + P1r);  // [P1 * 3]
     const int f = blockIdx.x;
     const int g = f / y_group;
     float* vf = v_out + (size_t)f * P2;
     float* gf = gx_do + (size_t)f * P1 * 3;
     if (!x_valid[f]) {  // uniform over the block, before any barrier
         for (int j = threadIdx.x; j < P2; j += blockDim.x) vf[j] = 0.f;
-        for (int k = threadIdx.x; k < P1 * 3; k += blockDim.x) gf[k] = 0.f;
+        for (int i = threadIdx.x; i < P1; i += blockDim.x) dh_out[(size_t)f * P1 + i] = 0.f;
+        float* hf = gx_dh + (size_t)f * P1 * 3;
+        for (int k = threadIdx.x; k < P1 * 3; k += blockDim.x) gf[k] = hf[k] = 0.f;
         return;
     }
     for (int k = threadIdx.x; k < P1 * 3; k += blockDim.x) acc[k] = 0.f;
+    bidir_init_rows(xs, key, P1);
     o2h_stage_rows(xs, ns, x, n, ctr, f, g, P1);  // ends with a barrier
 
     const float4* yg = y + (size_t)g * P2;
     const float* ogf = og + (size_t)f * P2;
-    for (int j0 = 0; j0 < P2; j0 += O2H_TILE) {
-        float4 yv[O2H_COLS];
-        o2h_load_cols(yg, j0, P2, yv);
-        float best[O2H_COLS];
-        int best_i[O2H_COLS];
-        o2h_scan(xs, P1, yv, best, best_i);
+    for (int j0 = 0; j0 < P2; j0 += BIDIR_PASS) {
+        float4 yv[BIDIR_COLS];
+        bidir_load_cols(yg, j0, P2, yv);
+        float best[BIDIR_COLS];
+        int best_i[BIDIR_COLS];
+        bidir_pass(xs, key, P1r, j0, yv, best, best_i);
 #pragma unroll
-        for (int c = 0; c < O2H_COLS; ++c) {
-            const int j = j0 + c * O2H_THREADS + threadIdx.x;
+        for (int c = 0; c < BIDIR_COLS; ++c) {
+            const int j = j0 + c * BIDIR_THREADS + threadIdx.x;
             if (j >= P2) continue;
             vf[j] = dist_loss_o2h_column(xs, ns, acc, yv[c], best[c], best_i[c],
                                          yv[c].x < O2H_INVALID_Y, ogf[j]);
         }
     }
-    __syncthreads();
+    __syncthreads();  // every pass's atomics on the keys and gx_do are done
     for (int k = threadIdx.x; k < P1 * 3; k += blockDim.x) gf[k] = acc[k];
-}
-
-__global__ void __launch_bounds__(H2O_REGION_ROWS)
-dist_loss_h2o_kernel(const float* __restrict__ x,      // [F, P1, 3]
-                     const float4* __restrict__ y,     // [G, P2] centred
-                     const float* __restrict__ ctr,    // [G, 3]
-                     const float* __restrict__ hg,     // [F, P1] GT h2o
-                     const float* __restrict__ vw,     // [P1] contact weights
-                     const unsigned char* __restrict__ x_valid,  // [F]
-                     float* __restrict__ dh_out,       // [F, P1]
-                     float* __restrict__ gx_dh,        // [F, P1, 3]
-                     int P1, int P2, int y_group, int R) {
-    __shared__ float4 ys[H2O_Y_STAGE];
-    const long long blk = blockIdx.x;
-    const int f = (int)(blk / R);
-    const int r = (int)(blk - (long long)f * R);
-    const int g = f / y_group;
-    const int row = r * H2O_REGION_ROWS + threadIdx.x;
-    const size_t o = (size_t)f * P1 + row;
-    if (!x_valid[f]) {  // uniform over the block, before any barrier
-        if (row < P1) {
-            dh_out[o] = 0.f;
-            gx_dh[3 * o + 0] = gx_dh[3 * o + 1] = gx_dh[3 * o + 2] = 0.f;
-        }
-        return;
+    for (int i = threadIdx.x; i < P1; i += blockDim.x) {
+        float best;
+        int best_j;
+        bidir_row(key[i], best, best_j);
+        const size_t o = (size_t)f * P1 + i;
+        const float4 xr = xs[i];
+        dist_loss_h2o_row(dh_out, gx_dh, o, yg, best, best_j, true, xr.x, xr.y, xr.z, hg[o], vw[i]);
     }
-    float x0, x1, x2;
-    const bool live = h2o_load_row(x, ctr, f, g, row, P1, x0, x1, x2);
-    float best;
-    int best_j;
-    const float4* yg = y + (size_t)g * P2;
-    h2o_row_scan(ys, yg, P2, live, x0, x1, x2, best, best_j);
-    if (!live) return;
-    dist_loss_h2o_row(dh_out, gx_dh, o, yg, best, best_j, true, x0, x1, x2, hg[o], vw[row]);
 }
 
 extern "C" int dist_loss_launch(const float* x, const float* n, const float4* y,
@@ -119,13 +118,10 @@ extern "C" int dist_loss_launch(const float* x, const float* n, const float4* y,
                                 float* v_out, float* dh_out, float* gx_do, float* gx_dh,
                                 int F, int P1, int P2, int y_group, cudaStream_t stream) {
     if (F <= 0 || P1 <= 0 || P2 <= 0) return 0;
-    const size_t smem = (size_t)P1 * (2 * sizeof(float4) + 3 * sizeof(float));
-    dist_loss_o2h_kernel<<<F, O2H_THREADS, smem, stream>>>(
-        x, n, y, ctr, og, x_valid, v_out, gx_do, P1, P2, y_group);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    const int R = (P1 + H2O_REGION_ROWS - 1) / H2O_REGION_ROWS;
-    dist_loss_h2o_kernel<<<(unsigned)((long long)F * R), H2O_REGION_ROWS, 0, stream>>>(
-        x, y, ctr, hg, vw, x_valid, dh_out, gx_dh, P1, P2, y_group, R);
+    const size_t smem = (size_t)bidir_rows_padded(P1) * BIDIR_SMEM_ROW + (size_t)P1 * 3 * sizeof(float);
+    const int e = bidir_smem_attr(dist_loss_kernel, smem);
+    if (e != 0) return e;
+    dist_loss_kernel<<<F, BIDIR_THREADS, smem, stream>>>(
+        x, n, y, ctr, og, hg, vw, x_valid, v_out, dh_out, gx_do, gx_dh, P1, P2, y_group);
     return (int)cudaGetLastError();
 }

@@ -224,3 +224,87 @@ def test_shared_cloud_requires_grad_y_false():
     y = torch.zeros((2, 20, 3))
     with pytest.raises(NotImplementedError):
         TG.point2point_signed(x, y, grad_y=True, y_group=2)
+
+
+def _tie_scene(seed, F=4, P1=300, P2=4200, y_group=2):
+    """Minima that tie exactly in both directions, at the seams of the
+    bidirectional kernel (256 threads x 4 columns per pass, rows in groups
+    of 8): every 7th point has an exact copy at +1 (the next lane), +32
+    (the next warp), +256 (the thread's next column), +1024 (the next
+    pass), +2048 or +4096; rows i + 128 copy rows i in alternate 128-row
+    blocks, every 16th row is copied to the next one (the same group) and
+    every 32nd to the one 8 on (the next group). Each row keeps its own
+    random normal, so the sign numerator shows which of two equal rows
+    won."""
+    rng = np.random.default_rng(seed)
+    y = rng.normal(scale=0.05, size=(F // y_group, P2, 3))
+    for k, off in enumerate((1, 32, 256, 1024, 2048, 4096)):
+        j = np.arange(k, max(P2 - off, 0), 7)
+        y[:, j + off] = y[:, j]
+    x = rng.normal(scale=0.03, size=(F, P1, 3)) + rng.normal(scale=0.02, size=(F, 1, 3))
+    i = np.arange(max(P1 - 128, 0))
+    i = i[(i // 128) % 2 == 0]
+    x[:, i + 128] = x[:, i]
+    i = np.arange(5, P1 - 1, 16)
+    x[:, i + 1] = x[:, i]
+    i = np.arange(2, P1 - 8, 32)
+    x[:, i + 8] = x[:, i]
+    n = rng.normal(size=(F, P1, 3))
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    return x.astype(np.float32), n.astype(np.float32), y.astype(np.float32)
+
+
+def _fma3_np(a0, b0, a1, b1, a2, b2):
+    """fma(a2, b2, fma(a1, b1, fl(a0 b0))) in float32, each fma formed
+    exactly in float64 and rounded once."""
+    s = (a0 * b0).astype(np.float64)
+    s = (a1.astype(np.float64) * b1 + s).astype(np.float32).astype(np.float64)
+    return (a2.astype(np.float64) * b2 + s).astype(np.float32)
+
+
+def _first_min_reference(x, n, y4, ctr, y_group):
+    """The forward's outputs in numpy on prepared operands: the pinned pair
+    arithmetic, then np.argmin (the first minimum) in both directions."""
+    xc = x - np.repeat(ctr, y_group, axis=0)[:, None, :]
+    yf = np.repeat(y4[..., :3], y_group, axis=0)
+    d = xc[:, :, None, :] - yf[:, None, :, :]
+    d2 = _fma3_np(d[..., 0], d[..., 0], d[..., 1], d[..., 1], d[..., 2], d[..., 2])  # [F, P1, P2]
+    h2o_i, o2h_i = np.argmin(d2, axis=2), np.argmin(d2, axis=1)
+    frames = np.arange(x.shape[0])[:, None]
+    dy = yf - xc[frames, o2h_i]
+    nr = n[frames, o2h_i]
+    dot = _fma3_np(nr[..., 0], dy[..., 0], nr[..., 1], dy[..., 1], nr[..., 2], dy[..., 2])
+    ties = ((d2 == d2.min(axis=2, keepdims=True)).sum(axis=2) > 1).sum(), \
+        ((d2 == d2.min(axis=1, keepdims=True)).sum(axis=1) > 1).sum()
+    return (d2.min(axis=2), h2o_i, d2.min(axis=1), o2h_i, dot), ties
+
+
+def _assert_first_min(got, want):
+    for name, a, b in zip(("h2o_d", "h2o_i", "o2h_d", "o2h_i", "o2h_dot"), got, want):
+        np.testing.assert_array_equal(a.cpu().numpy(), b, err_msg=name)
+
+
+@pytest.mark.parametrize("chunk_points", [None, 100])
+def test_plain_takes_the_first_minimum_on_exact_ties(monkeypatch, chunk_points):
+    """The plain forward against np.argmin on _tie_scene: equal values, and
+    on every exact tie the smallest index, in both directions and across
+    the plain version's chunks of points (chunk_points=100 puts every
+    copy's pair in another chunk than its original)."""
+    x, n, y = _tie_scene(7)
+    if chunk_points is not None:
+        monkeypatch.setattr(CS.NN, "_PLAIN_CHUNK_ELEMS", x.shape[0] * x.shape[1] * 3 * chunk_points)
+    ops = CS.prepare(_t(x), _t(y), _t(n), None, 2)
+    want, ties = _first_min_reference(*(t.numpy() for t in ops), 2)
+    assert min(ties) > 100, ties  # the scene really ties, both ways
+    _assert_first_min(CS.plain(*ops, 2), want)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_takes_the_first_minimum_on_exact_ties():
+    """The kernel on _tie_scene against np.argmin, both directions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    x, n, y = _tie_scene(7)
+    ops = CS.prepare(_t(x).cuda(), _t(y).cuda(), _t(n).cuda(), None, 2)
+    want, _ = _first_min_reference(*(t.cpu().numpy() for t in ops), 2)
+    _assert_first_min(CS.launch(*ops, 2), want)

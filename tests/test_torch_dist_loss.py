@@ -203,3 +203,117 @@ def test_extra_loss_fused_matches_composed():
         out[impl] = (float(v), mo.grad.numpy())
     np.testing.assert_allclose(out["fused"][0], out["composed"][0], rtol=LOSS_RTOL)
     np.testing.assert_allclose(out["fused"][1], out["composed"][1], rtol=LOSS_GRAD_RTOL, atol=LOSS_GRAD_ATOL)
+
+
+def _tie_scene(seed, F=4, P1=300, P2=4200, y_group=2):
+    """Minima that tie exactly in both directions, at the seams of the
+    bidirectional kernel (256 threads x 4 columns per pass, rows in groups
+    of 8): every 7th point has an exact copy at +1, +32, +256, +1024, +2048
+    or +4096; rows i + 128 copy rows i in alternate 128-row blocks, every
+    16th row is copied to the next one and every 32nd to the one 8 on
+    (the next group). Each row keeps its own normal, so which of two equal rows
+    wins a column shows in its sign (v) and in the row gx_do lands on. Two
+    equal points give a row the same dh and gx_dh whichever wins, so the
+    h2o tie shows only through the search itself. GT fields of hand scale,
+    every 3rd frame x_valid=False."""
+    rng = np.random.default_rng(seed)
+    y = rng.normal(scale=0.05, size=(F // y_group, P2, 3))
+    for k, off in enumerate((1, 32, 256, 1024, 2048, 4096)):
+        j = np.arange(k, max(P2 - off, 0), 7)
+        y[:, j + off] = y[:, j]
+    x = rng.normal(scale=0.03, size=(F, P1, 3)) + rng.normal(scale=0.02, size=(F, 1, 3))
+    i = np.arange(max(P1 - 128, 0))
+    i = i[(i // 128) % 2 == 0]
+    x[:, i + 128] = x[:, i]
+    i = np.arange(5, P1 - 1, 16)
+    x[:, i + 1] = x[:, i]
+    i = np.arange(2, P1 - 8, 32)
+    x[:, i + 8] = x[:, i]
+    n = rng.normal(size=(F, P1, 3))
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    og = rng.normal(size=(F, P2)) * 0.01
+    hg = np.abs(rng.normal(size=(F, P1))) * 0.01
+    xv = np.arange(F) % 3 != 0
+    f32 = lambda a: a.astype(np.float32)  # noqa: E731
+    return f32(x), f32(n), f32(y), f32(og), f32(hg), f32(rng.random(P1)), xv
+
+
+def _fma3_np(a0, b0, a1, b1, a2, b2):
+    s = (a0 * b0).astype(np.float64)
+    s = (a1.astype(np.float64) * b1 + s).astype(np.float32).astype(np.float64)
+    return (a2.astype(np.float64) * b2 + s).astype(np.float32)
+
+
+def _loss_reference(x, n, y4, ctr, og, hg, vw, xv, y_group):
+    """(v, dh, gx_do, gx_dh) in numpy on prepared operands: the pinned pair
+    arithmetic, np.argmin (the first minimum) both ways, the kernels'
+    per-point formulas in float32 (gx_do summed in float64); and the rows
+    that copy an earlier row, which can never be a column's first minimum."""
+    F, P1, _ = x.shape
+    xc = x - np.repeat(ctr, y_group, axis=0)[:, None, :]
+    yf = np.repeat(y4[..., :3], y_group, axis=0)
+    d = xc[:, :, None, :] - yf[:, None, :, :]
+    d2 = _fma3_np(d[..., 0], d[..., 0], d[..., 1], d[..., 1], d[..., 2], d[..., 2])
+    frames = np.arange(F)[:, None]
+    i_o, j_h = np.argmin(d2, axis=1), np.argmin(d2, axis=2)
+    dist = np.sqrt(d2.min(axis=1))
+    dy = yf - xc[frames, i_o]
+    nr = n[frames, i_o]
+    sgn = np.sign(_fma3_np(nr[..., 0], dy[..., 0], nr[..., 1], dy[..., 1], nr[..., 2], dy[..., 2]))
+    o = dist * sgn
+    w = np.where(o < 0, np.float32(1.5), np.where((og < 0.01) & (og > -0.005), np.float32(1.0), np.float32(0.1)))
+    diff = o - og
+    v = np.abs(diff) * w
+    coef = w * np.sign(diff) * sgn / np.maximum(dist, np.float32(1e-12))
+    gx_do = np.zeros((F, P1, 3))
+    np.add.at(gx_do, (np.broadcast_to(frames, i_o.shape), i_o), coef[..., None] * -dy)
+    hd = np.sqrt(d2.min(axis=2))
+    dh = np.abs(hd - np.abs(hg)) * vw
+    cfh = vw * np.sign(hd - np.abs(hg)) / np.maximum(hd, np.float32(1e-12))
+    gx_dh = cfh[..., None] * (xc - yf[frames, j_h])
+    live = xv.astype(bool)
+    out = [np.where(live[:, None], v, 0), np.where(live[:, None], dh, 0),
+           np.where(live[:, None, None], gx_do, 0), np.where(live[:, None, None], gx_dh, 0)]
+    later_copy = np.zeros((F, P1), bool)
+    for f in range(F):
+        _, first = np.unique(x[f], axis=0, return_index=True)
+        later_copy[f] = True
+        later_copy[f, first] = False
+    o2h_ties = (((d2 == d2.min(axis=1, keepdims=True)).sum(axis=1) > 1) & live[:, None]).sum()
+    return out, later_copy & live[:, None], o2h_ties
+
+
+def _assert_loss_reference(got, want, later_copy):
+    v, dh, gx_do, gx_dh = (t.cpu().numpy() for t in got)
+    np.testing.assert_allclose(v, want[0], rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(dh, want[1], rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(gx_dh, want[3], rtol=1e-6, atol=1e-7)
+    err = np.linalg.norm((gx_do - want[2]).reshape(len(v), -1), axis=1)
+    assert np.all(err <= 1e-5 * np.linalg.norm(want[2].reshape(len(v), -1), axis=1) + 1e-6), err
+    assert np.all(gx_do[later_copy] == 0)  # no column's first minimum is a later copy
+
+
+@pytest.mark.parametrize("chunk_points", [None, 100])
+def test_plain_takes_the_first_minimum_on_exact_ties(monkeypatch, chunk_points):
+    """The plain loss against a numpy reference built on np.argmin, on
+    _tie_scene: a column whose nearest rows tie takes the first one's sign
+    and sends its gradient row there; across the plain search's chunks of
+    points too (chunk_points=100)."""
+    x, n, y, og, hg, vw, xv = _tie_scene(8)
+    if chunk_points is not None:
+        monkeypatch.setattr(CL.NN, "_PLAIN_CHUNK_ELEMS", x.shape[0] * x.shape[1] * 3 * chunk_points)
+    ops = CL.prepare(_t(x), _t(n), _t(y), _t(og), _t(hg), _t(vw), None, _t(xv), 2)
+    want, later_copy, o2h_ties = _loss_reference(*(t.numpy() for t in ops), 2)
+    assert o2h_ties > 100  # live columns whose nearest rows tie
+    _assert_loss_reference(CL.plain(*ops, 2), want, later_copy)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_takes_the_first_minimum_on_exact_ties():
+    """The kernel on _tie_scene against the same numpy reference."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    x, n, y, og, hg, vw, xv = _tie_scene(8)
+    ops = CL.prepare(*(_t(a).cuda() for a in (x, n, y, og, hg, vw)), None, _t(xv).cuda(), 2)
+    want, later_copy, _ = _loss_reference(*(t.cpu().numpy() for t in ops), 2)
+    _assert_loss_reference(CL.launch(*ops, 2), want, later_copy)
