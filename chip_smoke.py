@@ -5,8 +5,8 @@
 
 Phases (any failure exits non-zero and prints no result line):
 1. build the CUDA kernels from ops/csrc (one nvcc per source, in parallel),
-   print ptxas' registers and spills, and the SASS hot loop of #6 and #8
-   (instructions per pair, cuobjdump);
+   print ptxas' registers and spills, and the SASS hot loop of #6, #8, #9
+   and #10 (instructions per pair, cuobjdump);
 2. serving kernels: check each against its plain PyTorch version on the
    card at the serving path's shapes (10240 frames = 64 clouds x 160
    frames, 778 hand rows, 2048 / 8192 object points) with ragged y_valid,
@@ -27,7 +27,10 @@ Phases (any failure exits non-zero and prints no result line):
    the same shape with the template permutation and an all-invalid slot:
    against its plain version on 1/8 of the frames, bit-equal to #8 on live
    frames, the mask's run and candidate shares, timed with the mask stage
-   and #8 on the same operands;
+   and #8 on the same operands; #9 on the tie scenes at tiles 2048, 512
+   and 640 under masks that drop blocks, and on a separated scene whose
+   mask keeps well under all blocks (its run share printed), against its
+   plain version and #8;
 4. R kernels (#3 culled dvec, #4 all-pairs dvec, #5 h2o backward): check
    each against its plain version on 32 frames x 778 rows x 8192 points
    (ragged cloud, all-invalid cloud, x_valid=False frames; #5 in both
@@ -41,7 +44,11 @@ Phases (any failure exits non-zero and prints no result line):
    template permutation): each against its plain version; #10 against #1
    (equal on rows of certified tiles, never below; the overflowed-tile
    share is printed); #12 at k_tiles 0 against #6's o2h half; each timed
-   at 40960 frames x 778 x 8192 with the selection stage;
+   at 40960 frames x 778 x 8192 with the selection stage; #10 on a tie
+   scene with reversed candidate lists, an empty cell in each list, an
+   all-invalid cloud and ids out of range, against its plain version;
+   then #8's, #9's and #10's registers, SASS instructions per pair, times,
+   bounds and issue floors side by side;
 6. small GPU-vs-CPU parity: the serving pipeline, a G train step on the
    three dist routes and an R train step on all three h2o routes (same
    weights, batch and noise, dropout 0): loss and gradients must agree;
@@ -148,11 +155,20 @@ def bound_ms(n_bytes: float, n_pairs: float) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def issue_floor_ms(n_pairs: float) -> float:
+def issue_floor_ms(n_pairs: float, instr_per_pair: int = INSTR_PER_PAIR) -> float:
     """The least time the card's warp schedulers need to issue a pair
-    search's instructions: INSTR_PER_PAIR per pair at the published SM
-    count and boost clock."""
-    return n_pairs * INSTR_PER_PAIR / PEAK_LANE_INSTR_PER_S * 1e3
+    search's instructions: INSTR_PER_PAIR per pair (a search of one
+    direction, 7: the distance's 6 and a minimum) at the published SM count
+    and boost clock."""
+    return n_pairs * instr_per_pair / PEAK_LANE_INSTR_PER_S * 1e3
+
+
+def ptxas_registers(kernel) -> int:
+    """The registers ptxas gave the kernel of a library (its build log)."""
+    import re
+
+    m = re.search(r"Used (\d+) registers", kernel.ptxas_log)
+    return int(m.group(1)) if m else -1
 
 
 def kernel_inputs(P2: int, G: int = 64, L: int = 160, P1: int = 778, seed: int = 0):
@@ -611,7 +627,7 @@ def check_training_kernels() -> dict[str, dict]:
     print(f"dist_loss F={f8} of {F} P1={P1} P2={P2} y_group={L}: plain within tolerance (max abs err {err})",
           flush=True)
     out["dist_loss"] = dict(
-        kernel=CL.KERNEL, max_abs_err=err8, shape=[F, P1, P2], live_frames=live,
+        kernel=CL.KERNEL, max_abs_err=err8, shape=[F, P1, P2], live_frames=live, pairs=live * P1 * P2,
         ms=cuda_time_ms(lambda: CL.launch(*lops, L), reps=3),
         plain_ms=8 * plain_ms,
         library_ms=None, bound_ms=b8, bound_by=by8, issue_floor_ms=issue_floor_ms(live * P1 * P2),
@@ -891,6 +907,7 @@ def check_cull_loss_kernel() -> dict[str, dict]:
     b, by = bound_ms(n_bytes, pairs)
     out["dist_loss_cull"] = dict(
         kernel=CL.CULL_KERNEL, max_abs_err=err, shape=[F, P1, P2], run_share=run, candidate_share=cand,
+        pairs=pairs,
         ms=cuda_time_ms(lambda: CL.launch_cull(*ops, mask, L, tile), reps=3),
         plain_ms=8 * plain_ms, library_ms=None, bound_ms=b, bound_by=by,
         mask_ms=cuda_time_ms(lambda: CL.region_cull_mask(x, y, yv, tile, L, xv), reps=3),
@@ -903,6 +920,94 @@ def check_cull_loss_kernel() -> dict[str, dict]:
     del x, n, y, yv, xv, og, hg, vw, ops, got, mask, live
     torch.cuda.empty_cache()
     return out
+
+
+def drop_mask(F: int, P1: int, P2: int, tile: int, seed: int):
+    """[F, R, T] int32 flags 0/1/3 on the card that drop ~40% of the blocks
+    at random, region 1 of frame 3 everywhere and every block of frame 4."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    m = rng.choice(np.array([0, 1, 3], np.int32), size=(F, -(-P1 // 128), -(-P2 // tile)), p=[0.4, 0.3, 0.3])
+    if F > 4:
+        m[3, 1:2] = 0
+        m[4] = 0
+    return torch.from_numpy(m).cuda()
+
+
+def check_cull_loss_edges() -> None:
+    """#9 where its region gate and tile-clipped passes matter:
+    - tie_scene (exact copies at the seams of the single-pass search) at
+      tiles 2048, 512 and 640 (a tile's last pass runs partly on dead
+      columns), P1 778 / P2 8193 at y_group 8 and P1 37 / P2 1000 at
+      y_group 1, under masks that drop blocks at random: against
+      plain_cull at #8's tolerances (v, dh, gx_dh rtol 1e-6 / atol 1e-7,
+      gx_do 1e-5 per frame); x_valid=False frames and frames whose every
+      block is dropped zero;
+    - a separated scene (clustered rows, a cloud whose far half holds no
+      minimum) whose exact mask keeps well under all blocks: against
+      plain_cull, and v, dh, gx_dh bit-equal to #8 on live frames."""
+    import numpy as np
+    import torch
+
+    from oakink2_tamf_tpu_torch.ops import chamfer_loss as CL
+
+    t0 = time.perf_counter()
+    err, cases = 0.0, 0
+    for tile in (2048, 512, 640):
+        for P1, P2, L in ((778, 8193, 8), (37, 1000, 1)):
+            x, n, y, yv, xv, og, hg, vw = tie_scene(3, L, P1, P2, seed=tile + P1)
+            where = f"tile={tile} P1={P1} P2={P2} y_group={L}"
+            ops = CL.prepare(x, n, y, og, hg, vw, yv, xv, L)
+            mask = drop_mask(x.shape[0], P1, P2, tile, seed=tile + P2)
+            got = CL.launch_cull(*ops, mask, L, tile)
+            want = CL.plain_cull(*ops, mask, L, tile)
+            for nm, i in (("v", 0), ("dh", 1), ("gx_dh", 3)):
+                require(torch.allclose(got[i], want[i], rtol=1e-6, atol=1e-7),
+                        f"dist_loss_cull {nm} vs plain on the tie scene at {where}: "
+                        f"{(got[i] - want[i]).abs().max().item()}")
+            require(scatter_close(got[2], want[2]), f"dist_loss_cull gx_do vs plain on the tie scene at {where}")
+            dead = ~xv | (mask == 0).flatten(1).all(dim=1)
+            require(all(bool((a[dead] == 0).all()) for a in got), f"dist_loss_cull: a frame that searched nothing "
+                    f"is not zero at {where}")
+            err = max(err, *((a - w).abs().max().item() for a, w in zip(got, want)))
+            cases += 1
+    rng = np.random.default_rng(21)
+    G, L, P2 = 4, 8, 8192
+    F = G * L
+    centers = rng.normal(scale=0.08, size=(F, 7, 3))
+    x = centers[:, np.minimum(np.arange(778) // 128, 6)] + rng.normal(scale=0.01, size=(F, 778, 3))
+    y = rng.normal(scale=0.06, size=(G, P2, 3))
+    y[:, P2 // 2 :, 0] += 0.6  # a far half: its tiles hold no row's minimum
+    yv = np.ones((G, P2), bool)
+    yv[1, 6000:] = False
+    yv[2] = False
+    xv = np.ones(F, bool)
+    xv[::5] = False
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).cuda()  # noqa: E731
+    x, y = t(x), t(y)
+    n = torch.nn.functional.normalize(t(rng.normal(size=(F, 778, 3))), dim=-1)
+    og, hg = t(rng.normal(size=(F, P2)) * 0.01), t(np.abs(rng.normal(size=(F, 778))) * 0.01)
+    yv, xv = torch.from_numpy(yv).cuda(), torch.from_numpy(xv).cuda()
+    ops = CL.prepare(x, n, y, og, hg, torch.rand(778, device="cuda"), yv, xv, L)
+    mask = CL.region_cull_mask(x, y, yv, 2048, L, xv)
+    run, _ = mask_shares(mask, xv & yv.any(dim=1).repeat_interleave(L))
+    require(0 < run < 0.8, f"the separated scene's mask keeps {run} of its blocks")
+    got = CL.launch_cull(*ops, mask, L, 2048)
+    want = CL.plain_cull(*ops, mask, L, 2048)
+    for i in (0, 1, 3):
+        require(torch.allclose(got[i], want[i], rtol=1e-6, atol=1e-7), "dist_loss_cull vs plain on the separated scene")
+    require(scatter_close(got[2], want[2]), "dist_loss_cull gx_do vs plain on the separated scene")
+    full = CL.launch(*ops, L)
+    live = xv & yv.any(dim=1).repeat_interleave(L)
+    require(all(torch.equal(got[i][live], full[i][live]) for i in (0, 1, 3)),
+            "dist_loss_cull and dist_loss differ on the separated scene's live frames")
+    torch.cuda.synchronize()
+    print(f"dist_loss_cull on the tie scenes: {cases} cases (tiles 2048, 512, 640; masks dropping ~40% of the "
+          f"blocks), within tolerance of plain (max abs err {err}), frames that searched nothing zero; separated "
+          f"scene F={F} P2={P2}: run share {run:.4f} on its live frames, equal to plain and bit-equal to "
+          f"dist_loss on them; in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def _train_batch(bs: int, L: int, nobj: int, P: int, seed: int, clip, device):
@@ -1946,12 +2051,16 @@ def check_cluster_kernels() -> dict[str, dict]:
     pairs10 = float((cell_pts[cloud[:, None, None], cidx.long()] * tile_rows[:, None]).sum())
     live_f = int(yv.any(1)[cloud].sum())
     b10, by10 = bound_ms(live_f * (P1 * 12 + T * K * 4) + int(yv.sum()) * 16 + F * P1 * 8, pairs10)
-    print(f"h2o_topk bound: {pairs10:.6g} pairs on {live_f} of {F} frames with a real object", flush=True)
+    # what the kernel searches: 128 rows x 128 points of each listed cell
+    # with a valid point (it skips the others), against every listed cell
+    searched = float(CC.cell_flags(y4)[cloud[:, None, None], cidx.long()].sum()) * S * S
+    print(f"h2o_topk bound: {pairs10:.6g} pairs on {live_f} of {F} frames with a real object; the kernel "
+          f"searches {searched:.6g} pairs (every listed cell: {F * T * K * S * S:.6g})", flush=True)
     del cell_pts, cloud
     xc = NN.centred_x(xs, ctr, L).reshape(G, L * P1, 3)
     yc = y4[..., :3].contiguous()
     out["h2o_topk"] = dict(
-        kernel=CC.H2O_KERNEL, max_abs_err=err10, shape=[F, P1, P2], K=K, overflow_share=share,
+        kernel=CC.H2O_KERNEL, max_abs_err=err10, shape=[F, P1, P2], K=K, overflow_share=share, pairs=pairs10,
         ms=cuda_time_ms(lambda: CC.launch_h2o_topk(xs, y4, ctr, cidx, L), reps=5),
         plain_ms=8 * plain10_ms,
         library_ms=cuda_time_ms(lambda: library_min_idx(xc, yc), reps=1),
@@ -2101,6 +2210,67 @@ def check_cluster_kernels() -> dict[str, dict]:
     del x, y, yv, nrm, yF, o2h_i, ycot
     torch.cuda.empty_cache()
     return out
+
+
+def check_topk_edges() -> None:
+    """#10 on a tie scene whose candidate lists are not in index order: 3
+    clouds of 8193 points (a 1-point last cell), every 5th point copied at
+    +1 (the same cell) and +128 (the next cell, which the reversed lists
+    visit first), cell 2 all-invalid and in every list, cloud 1
+    all-invalid; 778 rows (a 10-row last tile) at y_group 1 and 4; K = 24
+    cells per tile, the cells in reversed order rotated by (frame + tile).
+    Values bit-equal and indices equal to plain_h2o_topk; then with ids out
+    of range in the lists (the kernel skips them), against the plain
+    version on the same lists with those ids replaced by the empty cell."""
+    import numpy as np
+    import torch
+
+    from oakink2_tamf_tpu_torch.ops import chamfer_cluster as CC
+    from oakink2_tamf_tpu_torch.ops import chamfer_nn as NN
+
+    t0 = time.perf_counter()
+    G, P1, P2, K = 3, 778, 8193, 24
+    S = CC.S_CELL
+    ties = 0
+    for L in (1, 4):
+        rng = np.random.default_rng(40 + L)
+        F = G * L
+        y = rng.normal(scale=0.05, size=(G, P2, 3))
+        j = np.arange(0, P2 - S, 5)
+        y[:, j + 1] = y[:, j]
+        y[:, j + S] = y[:, j]
+        yv = np.ones((G, P2), bool)
+        yv[:, 2 * S : 3 * S] = False
+        yv[1] = False
+        t = lambda a: torch.from_numpy(np.asarray(a)).cuda()  # noqa: E731
+        xs, y4, ctr = NN.prepare(t(rng.normal(scale=0.05, size=(F, P1, 3)).astype(np.float32)),
+                                 t(y.astype(np.float32)), t(yv), L)
+        T, C = -(-P1 // S), -(-P2 // S)
+        rev = np.arange(C)[::-1]
+        cidx = np.array([[np.roll(rev, f + k)[:K] for k in range(T)] for f in range(F)], np.int32)
+        cidx[:, :, K // 2] = 2
+        got = CC.launch_h2o_topk(xs, y4, ctr, t(cidx), L)
+        want = CC.plain_h2o_topk(xs, y4, ctr, t(cidx), L)
+        require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                f"h2o_topk differs from plain on the tie scene at y_group {L}")
+        # rows whose minimum a second point of the cloud also reaches
+        yc = y4[..., :3].repeat_interleave(L, 0)
+        found = got[0] < CC.BIG
+        d2 = NN.sq_norm_rn(NN.centred_x(xs, ctr, L)[:, :, None, :] - yc[:, None, :, :])
+        ties += int(((d2 == got[0][..., None]).sum(-1) > 1)[found].sum())
+        del d2, yc
+        oor = cidx.copy()
+        oor[:, :, 0] = -1
+        oor[:, 1::2, 1] = C + 3
+        got = CC.launch_h2o_topk(xs, y4, ctr, t(oor), L)
+        want = CC.plain_h2o_topk(xs, y4, ctr, t(np.where((oor >= 0) & (oor < C), oor, 2).astype(np.int32)), L)
+        require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                f"h2o_topk with ids out of range differs from plain on the same lists at y_group {L}")
+    torch.cuda.synchronize()
+    require(ties > 0, "the #10 tie scene ties no minimum")
+    print(f"h2o_topk on the tie scene (reversed candidate lists, an empty cell in each, an all-invalid cloud, "
+          f"P1 {P1}, P2 {P2}, K {K}, y_group 1 and 4): equal to plain ({ties} rows whose minimum two points "
+          f"reach), and with ids out of range skipped; in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def small_r_cluster_parity() -> None:
@@ -2375,8 +2545,9 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
     for k in kernels:
         print("\n".join(ln for ln in k.ptxas_log.splitlines() if "Used" in ln or "spill" in ln))
-    for k in (CS.KERNEL, CL.KERNEL):  # the bidirectional searches' hot loop
-        st = sass_inner_loop(k)
+    sass = {}
+    for k in (CS.KERNEL, CL.KERNEL, CL.CULL_KERNEL, CC.H2O_KERNEL):  # the pair searches' hot loop
+        st = sass[k.name] = sass_inner_loop(k)
         print(f"{k.name} SASS hot loop: {st['instructions']} instructions, {st['fast_path']} without the row "
               f"merge, {st['pairs']} pairs: {st['fast_path'] / max(st['pairs'], 1):.3f} per pair; "
               f"{st['opcodes']}", flush=True)
@@ -2392,10 +2563,19 @@ def main() -> int:
     check_signed_edges()
     phase("fused_cull kernel")
     kstats.update(check_cull_loss_kernel())
+    check_cull_loss_edges()
     phase("R kernels")
     kstats.update(check_r_kernels())
     phase("cluster kernels")
     kstats.update(check_cluster_kernels())
+    check_topk_edges()
+    for name in ("dist_loss", "dist_loss_cull", "h2o_topk"):  # the redesigned searches side by side
+        st, o = sass[name], kstats[name]
+        floor = issue_floor_ms(o["pairs"], 7 if name == "h2o_topk" else INSTR_PER_PAIR)
+        print(f"{name}: {ptxas_registers(o['kernel'])} registers, {st['fast_path'] / max(st['pairs'], 1):.3f} SASS "
+              f"instructions per pair, {o['ms']:.4f} ms at {o['shape']} (bound {o['bound_ms']:.4f} ms, issue "
+              f"floor {floor:.4f} ms)" + (f"; dist_loss on its operands {o['all_pairs_ms']:.4f} ms"
+                                          if "all_pairs_ms" in o else ""), flush=True)
     phase("small pipeline parity")
     small_parity()
     phase("small train-step parity")

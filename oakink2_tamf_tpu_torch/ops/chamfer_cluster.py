@@ -36,7 +36,8 @@ as XLA runs them there, on the CPU and the GPU alike):
 4. Kernels (CUDA C++, csrc/; bounds and designs in the sources):
    #10 `h2o_topk` (csrc/h2o_topk.cu) replaces `_h2o_topk_kernel` (:474):
        each row's min over its tile's K candidate cells, and the first
-       point reaching it;
+       point reaching it; it skips the cells without a valid point
+       (`cell_flags`), which can never lower a row;
    #11 `h2o_topk_bwd` (csrc/h2o_topk_bwd.cu) replaces
        `_h2o_topk_bwd_kernel(_nogy)` (:558 / :596);
    #12 `o2h_topk` (csrc/o2h_topk.cu) replaces `_o2h_topk_kernel` (:801):
@@ -94,7 +95,7 @@ H2O_KERNEL = Kernel(
     "h2o_topk", "h2o_topk.cu",
     replaces="oakink2_tamf_tpu/ops/chamfer_cluster.py:474",
     symbol="h2o_topk_launch",
-    argtypes=[_P] * 6 + [_I] * 6 + [_P],
+    argtypes=[_P] * 7 + [_I] * 6 + [_P],
 )
 H2O_BWD_KERNEL = Kernel(
     "h2o_topk_bwd", "h2o_topk_bwd.cu",
@@ -358,6 +359,18 @@ def plain_h2o_topk(xs, y4, ctr, cidx, y_group: int):
             best_j.reshape(F, T * S_CELL)[:, :P1].to(torch.int32))
 
 
+def cell_flags(y4: torch.Tensor) -> torch.Tensor:
+    """[G, C] uint8: 1 where a 128-point cell of the prepared clouds y4
+    [G, P2, 4] holds a valid point (an invalid one sits at FAR), 0 past P2.
+    Kernel #10 skips the other cells: their points can never lower a row.
+    Derived from y4 itself, so the flags agree with the operand the kernel
+    reads; on the selection's operands they are `cell_stats(...)[3]`."""
+    G, P2, _ = y4.shape
+    C = _cdiv(P2, S_CELL)
+    valid = torch.nn.functional.pad(y4[..., 0] < FAR / 2, (0, C * S_CELL - P2), value=False)
+    return valid.reshape(G, C, S_CELL).any(dim=-1).to(torch.uint8)
+
+
 def _check_cuda(named: dict, device) -> None:
     for name, (t, dtype) in named.items():
         if not t.is_cuda or t.dtype != dtype or not t.is_contiguous():
@@ -380,12 +393,13 @@ def launch_h2o_topk(xs, y4, ctr, cidx, y_group: int):
                          f"cidx {tuple(cidx.shape)}")
     if F * T >= 2**31:
         raise ValueError("too many blocks for one launch")
+    live = cell_flags(y4)
     d = torch.empty((F, P1), dtype=f32, device=xs.device)
     idx = torch.empty((F, P1), dtype=torch.int32, device=xs.device)
     with torch.cuda.device(xs.device):
         H2O_KERNEL.launch(
-            xs.data_ptr(), y4.data_ptr(), ctr.data_ptr(), cidx.data_ptr(), d.data_ptr(), idx.data_ptr(),
-            F, P1, P2, y_group, T, K, torch.cuda.current_stream().cuda_stream,
+            xs.data_ptr(), y4.data_ptr(), ctr.data_ptr(), cidx.data_ptr(), live.data_ptr(), d.data_ptr(),
+            idx.data_ptr(), F, P1, P2, y_group, T, K, torch.cuda.current_stream().cuda_stream,
         )
     return d, idx
 

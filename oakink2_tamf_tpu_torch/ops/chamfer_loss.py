@@ -32,10 +32,12 @@ searched. The mask (a copy of `_region_cull_mask`, :405-502, plain XLA
 there, plain PyTorch here) is exact: a skipped block holds no row's
 minimum and no column's first-min row, so on live frames whose cloud has a
 valid point the culled kernel equals the all-pairs one on the same
-operands. Rows that searched nothing (x_valid=False frames, all-invalid
-clouds) give dh = 0 and a zero gradient row (the TPU's `hdone`), columns
-that searched nothing v = 0. Its bound: 8 flops per pair of the kept
-blocks on live frames.
+operands. Both kernels are one kernel body (csrc/dist_loss_common.cuh),
+the culled one gating each 128-row region of its single-pass search by the
+mask, tile by tile. Rows that searched nothing (x_valid=False frames,
+all-invalid clouds) give dh = 0 and a zero gradient row (the TPU's
+`hdone`), columns that searched nothing v = 0. Its bound: 8 flops per pair
+of the kept blocks on live frames.
 
 On a CUDA tensor the wrappers launch their kernel or raise; on a CPU tensor
 they run the plain versions, which share the signed forward's per-pair

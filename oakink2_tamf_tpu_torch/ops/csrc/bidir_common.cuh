@@ -17,8 +17,8 @@
 // groups of BIDIR_ROWS, each row read by one broadcast shared load:
 //   column side: the group's minimum per column (fminf), a strict < against
 //     the running one in registers, and after the pass the first row of the
-//     winning group at that value: the first minimum over ascending i,
-//     exactly o2h_scan's;
+//     winning group at that value: the first minimum over ascending i (a
+//     strict < from BIG, so a column that no row beats keeps (BIG, 0));
 //   row side: fminf over the thread's columns and a vote whether any lane's
 //     minimum can reach the row's value (<=: a tie may still carry a
 //     smaller index); only then a second vote whether (minimum, the lane's
@@ -81,70 +81,95 @@ __device__ __forceinline__ void bidir_load_cols(
     }
 }
 
+// One group of BIDIR_ROWS staged rows from i0 against the columns yv of the
+// pass (j_lane: this lane's first column): the group's BIDIR_ROWS x
+// BIDIR_COLS distances are reduced along both axes. The column side keeps
+// only the first group whose minimum beats its running one (strict <,
+// ascending groups: best_i is the group's first row until bidir_pass
+// resolves it); the row side lowers the rows' keys.
+__device__ __forceinline__ void bidir_group(
+    const float4* xs, unsigned long long* key, int i0, unsigned j_lane,
+    const float4 (&yv)[BIDIR_COLS], float (&best)[BIDIR_COLS], int (&best_i)[BIDIR_COLS]) {
+    // the high (value) word of key[i] is key_d[2 i] (little-endian)
+    const volatile unsigned* key_d = reinterpret_cast<const volatile unsigned*>(key) + 1;
+    const volatile unsigned long long* key_v = key;
+    float d[BIDIR_ROWS][BIDIR_COLS];
+#pragma unroll
+    for (int r = 0; r < BIDIR_ROWS; ++r) {
+        const float4 xr = xs[i0 + r];
+#pragma unroll
+        for (int c = 0; c < BIDIR_COLS; ++c) d[r][c] = h2o_pair_d2(xr.x, xr.y, xr.z, yv[c]);
+    }
+#pragma unroll
+    for (int c = 0; c < BIDIR_COLS; ++c) {  // column side: the group's minimum
+        float m = d[0][c];
+#pragma unroll
+        for (int r = 1; r < BIDIR_ROWS; ++r) m = fminf(m, d[r][c]);
+        if (m < best[c]) {  // strict over ascending groups: the first one wins
+            best[c] = m;
+            best_i[c] = i0;
+        }
+    }
+#pragma unroll
+    for (int r = 0; r < BIDIR_ROWS; ++r) {  // row side
+        float m = d[r][0];
+#pragma unroll
+        for (int c = 1; c < BIDIR_COLS; ++c) m = fminf(m, d[r][c]);
+        const unsigned mu = __float_as_uint(m);
+        if (__any_sync(BIDIR_FULL, mu <= key_d[2 * (i0 + r)])  // warp-uniform
+            && __any_sync(BIDIR_FULL, bidir_key(mu, j_lane) < key_v[i0 + r])) {
+            const unsigned mb = __reduce_min_sync(BIDIR_FULL, mu);
+            unsigned jb = 0xffffffffu;
+#pragma unroll
+            for (int c = BIDIR_COLS - 1; c >= 0; --c)  // this lane's first column at mb
+                if (__float_as_uint(d[r][c]) == mb) jb = j_lane + c * BIDIR_THREADS;
+            jb = __reduce_min_sync(BIDIR_FULL, jb);
+            if ((threadIdx.x & 31) == 0) atomicMin(key + i0 + r, bidir_key(mb, jb));
+        }
+    }
+}
+
 // One pass over the staged rows for the columns yv of the pass at j0:
 // returns each column's first minimum (best, best_i), and lowers the rows'
 // keys with this pass's pairs. P1r is P1 rounded up to BIDIR_ROWS, the
-// rows past P1 staged far away (bidir_pad_rows). Called by every thread of
+// rows past P1 staged far away (bidir_init_rows). Called by every thread of
 // the block, with warps whole (the redux and vote take all 32 lanes).
 //
-// The rows go in groups of BIDIR_ROWS: a group's BIDIR_ROWS x BIDIR_COLS
-// distances are reduced along both axes, the column side keeps only the
-// first group whose minimum beats its running one (strict <, ascending
-// groups), and after the pass the row inside that group is found again
-// from the same pair values: the first row of the group whose distance
-// equals the minimum. That is the first minimum over ascending rows, and
-// the column side costs 3 instructions per group instead of per pair.
+// The rows go in groups of BIDIR_ROWS (bidir_group), and after the pass the
+// row inside a column's winning group is found again from the same pair
+// values: the first row of the group whose distance equals the minimum.
+// That is the first minimum over ascending rows, and the column side costs
+// 3 instructions per group instead of per pair.
+//
+// CULL (the region-culled loss, dist_loss_cull.cu): only the 128-row
+// regions r whose bit r of `run` is set are searched, in ascending order
+// (at most 32 regions). A region is 16 whole groups, and `run` is the same
+// for the whole block, so a skipped region costs no divergence. A column
+// whose regions were all skipped keeps (BIG, 0), and so does a row of
+// such a region.
+template <bool CULL = false>
 __device__ __forceinline__ void bidir_pass(
     const float4* xs, unsigned long long* key, int P1r, int j0,
-    const float4 (&yv)[BIDIR_COLS], float (&best)[BIDIR_COLS], int (&best_i)[BIDIR_COLS]) {
+    const float4 (&yv)[BIDIR_COLS], float (&best)[BIDIR_COLS], int (&best_i)[BIDIR_COLS],
+    unsigned run = ~0u) {
 #pragma unroll
     for (int c = 0; c < BIDIR_COLS; ++c) {
         best[c] = H2O_BIG;
         best_i[c] = 0;  // the first row of the winning group, until resolved
     }
-    // the high (value) word of key[i] is key_d[2 i] (little-endian)
-    const volatile unsigned* key_d = reinterpret_cast<const volatile unsigned*>(key) + 1;
-    const volatile unsigned long long* key_v = key;
     const unsigned j_lane = (unsigned)(j0 + threadIdx.x);
-    for (int i0 = 0; i0 < P1r; i0 += BIDIR_ROWS) {
-        float d[BIDIR_ROWS][BIDIR_COLS];
-#pragma unroll
-        for (int r = 0; r < BIDIR_ROWS; ++r) {
-            const float4 xr = xs[i0 + r];
-#pragma unroll
-            for (int c = 0; c < BIDIR_COLS; ++c) d[r][c] = h2o_pair_d2(xr.x, xr.y, xr.z, yv[c]);
+    if constexpr (CULL) {
+        for (int r0 = 0; r0 < P1r; r0 += H2O_REGION_ROWS, run >>= 1) {
+            if (!(run & 1u)) continue;  // block-uniform: the mask alone decides
+            const int r1 = min(P1r, r0 + H2O_REGION_ROWS);
+            for (int i0 = r0; i0 < r1; i0 += BIDIR_ROWS) bidir_group(xs, key, i0, j_lane, yv, best, best_i);
         }
-#pragma unroll
-        for (int c = 0; c < BIDIR_COLS; ++c) {  // column side: the group's minimum
-            float m = d[0][c];
-#pragma unroll
-            for (int r = 1; r < BIDIR_ROWS; ++r) m = fminf(m, d[r][c]);
-            if (m < best[c]) {  // strict over ascending groups: the first one wins
-                best[c] = m;
-                best_i[c] = i0;
-            }
-        }
-#pragma unroll
-        for (int r = 0; r < BIDIR_ROWS; ++r) {  // row side
-            float m = d[r][0];
-#pragma unroll
-            for (int c = 1; c < BIDIR_COLS; ++c) m = fminf(m, d[r][c]);
-            const unsigned mu = __float_as_uint(m);
-            if (__any_sync(BIDIR_FULL, mu <= key_d[2 * (i0 + r)])  // warp-uniform
-                && __any_sync(BIDIR_FULL, bidir_key(mu, j_lane) < key_v[i0 + r])) {
-                const unsigned mb = __reduce_min_sync(BIDIR_FULL, mu);
-                unsigned jb = 0xffffffffu;
-#pragma unroll
-                for (int c = BIDIR_COLS - 1; c >= 0; --c)  // this lane's first column at mb
-                    if (__float_as_uint(d[r][c]) == mb) jb = j_lane + c * BIDIR_THREADS;
-                jb = __reduce_min_sync(BIDIR_FULL, jb);
-                if ((threadIdx.x & 31) == 0) atomicMin(key + i0 + r, bidir_key(mb, jb));
-            }
-        }
+    } else {
+        for (int i0 = 0; i0 < P1r; i0 += BIDIR_ROWS) bidir_group(xs, key, i0, j_lane, yv, best, best_i);
     }
 #pragma unroll
     for (int c = 0; c < BIDIR_COLS; ++c) {  // the first row of the group at the minimum
-        if (best[c] < H2O_BIG) {  // a group won; else (BIG, 0) as o2h_scan gives
+        if (best[c] < H2O_BIG) {  // a group won; else the column keeps (BIG, 0)
             int r = BIDIR_ROWS - 1;
 #pragma unroll
             for (int q = BIDIR_ROWS - 2; q >= 0; --q) {

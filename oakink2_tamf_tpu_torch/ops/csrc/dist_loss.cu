@@ -32,21 +32,20 @@
 // opted in above 48 KB): after each pass, its columns' integrands and
 // gradient rows go through dist_loss_common.cuh's dist_loss_o2h_column (a
 // shared atomic add per column); after the last pass, the accumulator is
-// written once and each row's key goes through dist_loss_h2o_row. Those
-// two functions are the region-culled twin's (dist_loss_cull.cu),
-// unchanged, so the two agree bit for bit wherever they find the same
-// minimum.
+// written once and each row's key goes through dist_loss_h2o_row. The
+// kernel body is dist_loss_common.cuh's dist_loss_body, which the
+// region-culled twin (dist_loss_cull.cu) instantiates with its region
+// gate, so the two agree bit for bit wherever they find the same minimum.
 // The shared atomic adds land in a run-dependent order: gx_do is not
 // bitwise reproducible, compare at rtol.
 //
 // Measured with chip_smoke.py on an NVIDIA H100 80GB HBM3 (power limit
-// 700.00 W) at the G training shape: 101.8-102.6 ms over four runs,
+// 700.00 W) at the G training shape: 101.8-102.6 ms over five runs,
 // 26.0-26.3% of the flop bound and 52.1-52.6% of the issue floor. ptxas: 64
 // registers, 4 bytes spilled (outside the hot loop). SASS of the hot loop:
 // 301 instructions per 32 pairs without the row merge, 9.41 per pair. As
 // for nn_signed.cu, the issue rate reached (~62%) holds it back.
 
-#include "bidir_common.cuh"
 #include "dist_loss_common.cuh"
 
 __global__ void __launch_bounds__(BIDIR_THREADS, 4)
@@ -63,53 +62,8 @@ dist_loss_kernel(const float* __restrict__ x,      // [F, P1, 3]
                  float* __restrict__ gx_do,        // [F, P1, 3]
                  float* __restrict__ gx_dh,        // [F, P1, 3]
                  int P1, int P2, int y_group) {
-    extern __shared__ float4 smem[];
-    const int P1r = bidir_rows_padded(P1);
-    float4* xs = smem;                                                                 // [P1r]
-    float4* ns = smem + P1r;                                                           // [P1r]
-    unsigned long long* key = reinterpret_cast<unsigned long long*>(smem + 2 * P1r);  // [P1r]
-    float* acc = reinterpret_cast<float*>(key + P1r);  // [P1 * 3]
-    const int f = blockIdx.x;
-    const int g = f / y_group;
-    float* vf = v_out + (size_t)f * P2;
-    float* gf = gx_do + (size_t)f * P1 * 3;
-    if (!x_valid[f]) {  // uniform over the block, before any barrier
-        for (int j = threadIdx.x; j < P2; j += blockDim.x) vf[j] = 0.f;
-        for (int i = threadIdx.x; i < P1; i += blockDim.x) dh_out[(size_t)f * P1 + i] = 0.f;
-        float* hf = gx_dh + (size_t)f * P1 * 3;
-        for (int k = threadIdx.x; k < P1 * 3; k += blockDim.x) gf[k] = hf[k] = 0.f;
-        return;
-    }
-    for (int k = threadIdx.x; k < P1 * 3; k += blockDim.x) acc[k] = 0.f;
-    bidir_init_rows(xs, key, P1);
-    o2h_stage_rows(xs, ns, x, n, ctr, f, g, P1);  // ends with a barrier
-
-    const float4* yg = y + (size_t)g * P2;
-    const float* ogf = og + (size_t)f * P2;
-    for (int j0 = 0; j0 < P2; j0 += BIDIR_PASS) {
-        float4 yv[BIDIR_COLS];
-        bidir_load_cols(yg, j0, P2, yv);
-        float best[BIDIR_COLS];
-        int best_i[BIDIR_COLS];
-        bidir_pass(xs, key, P1r, j0, yv, best, best_i);
-#pragma unroll
-        for (int c = 0; c < BIDIR_COLS; ++c) {
-            const int j = j0 + c * BIDIR_THREADS + threadIdx.x;
-            if (j >= P2) continue;
-            vf[j] = dist_loss_o2h_column(xs, ns, acc, yv[c], best[c], best_i[c],
-                                         yv[c].x < O2H_INVALID_Y, ogf[j]);
-        }
-    }
-    __syncthreads();  // every pass's atomics on the keys and gx_do are done
-    for (int k = threadIdx.x; k < P1 * 3; k += blockDim.x) gf[k] = acc[k];
-    for (int i = threadIdx.x; i < P1; i += blockDim.x) {
-        float best;
-        int best_j;
-        bidir_row(key[i], best, best_j);
-        const size_t o = (size_t)f * P1 + i;
-        const float4 xr = xs[i];
-        dist_loss_h2o_row(dh_out, gx_dh, o, yg, best, best_j, true, xr.x, xr.y, xr.z, hg[o], vw[i]);
-    }
+    dist_loss_body<false>(x, n, y, ctr, og, hg, vw, x_valid, nullptr, v_out, dh_out, gx_do, gx_dh,
+                          P1, P2, y_group, 0, 0, 0);
 }
 
 extern "C" int dist_loss_launch(const float* x, const float* n, const float4* y,
@@ -118,7 +72,7 @@ extern "C" int dist_loss_launch(const float* x, const float* n, const float4* y,
                                 float* v_out, float* dh_out, float* gx_do, float* gx_dh,
                                 int F, int P1, int P2, int y_group, cudaStream_t stream) {
     if (F <= 0 || P1 <= 0 || P2 <= 0) return 0;
-    const size_t smem = (size_t)bidir_rows_padded(P1) * BIDIR_SMEM_ROW + (size_t)P1 * 3 * sizeof(float);
+    const size_t smem = dist_loss_smem(P1);
     const int e = bidir_smem_attr(dist_loss_kernel, smem);
     if (e != 0) return e;
     dist_loss_kernel<<<F, BIDIR_THREADS, smem, stream>>>(

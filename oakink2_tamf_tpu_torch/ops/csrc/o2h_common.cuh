@@ -1,22 +1,16 @@
 // Shared pieces of the object->hand (o2h) direction of the signed kernels
-// (nn_signed.cu, dist_loss.cu): per object point y_j, the first hand row i
-// that minimises ||x_i - y_j||^2, and the sign numerator n_i . (y_j - x_i)
-// read from that row.
+// (nn_signed.cu, dist_loss.cu, dist_loss_cull.cu, o2h_topk.cu): per object
+// point y_j, the first hand row i that minimises ||x_i - y_j||^2, and the
+// sign numerator n_i . (y_j - x_i) read from that row.
 //
 // Layout: a block stages its frame's hand rows, centred on the group's
 // y-mean like the h2o kernels centre them, and their normals in shared
-// memory as float4 (P1 x 32 bytes, 24.9 KB for the 778 MANO rows). Each
-// thread owns O2H_COLS columns, strided by the block width so that loads
-// and stores of neighbouring threads are neighbouring addresses, and keeps
-// their points and running minima in registers: one broadcast shared load
-// of a row serves O2H_COLS pairs.
+// memory as float4 (P1 x 32 bytes, 24.9 KB for the 778 MANO rows); the
+// searches themselves are the kernels' own (bidir_common.cuh, o2h_topk.cu).
 #pragma once
 
 #include "h2o_common.cuh"
 
-#define O2H_THREADS 256
-#define O2H_COLS 4
-#define O2H_TILE (O2H_THREADS * O2H_COLS)  // columns per pass of a block
 // An invalid y sits at 1e15 per coordinate after centring (ops/chamfer_nn.FAR).
 #define O2H_INVALID_Y 5e14f
 
@@ -33,42 +27,6 @@ __device__ __forceinline__ void o2h_stage_rows(
         ns[i] = make_float4(np_[0], np_[1], np_[2], 0.f);
     }
     __syncthreads();
-}
-
-// Loads this thread's columns of the pass starting at j0 (dead columns past
-// P2 get an invalid point and are never written).
-__device__ __forceinline__ void o2h_load_cols(
-    const float4* __restrict__ yg, int j0, int P2, float4 (&yv)[O2H_COLS]) {
-#pragma unroll
-    for (int c = 0; c < O2H_COLS; ++c) {
-        const int j = j0 + c * O2H_THREADS + threadIdx.x;
-        yv[c] = j < P2 ? yg[j] : make_float4(1e15f, 1e15f, 1e15f, 0.f);
-    }
-}
-
-// First minimum over the rows for each of the thread's columns: a strict <
-// over ascending i, starting at BIG, so an invalid column keeps (BIG, 0).
-// The pair value is h2o_pair_d2 of (row, point), the h2o kernels' value.
-__device__ __forceinline__ void o2h_scan(
-    const float4* xs, int P1, const float4 (&yv)[O2H_COLS],
-    float (&best)[O2H_COLS], int (&best_i)[O2H_COLS]) {
-#pragma unroll
-    for (int c = 0; c < O2H_COLS; ++c) {
-        best[c] = H2O_BIG;
-        best_i[c] = 0;
-    }
-#pragma unroll 2
-    for (int i = 0; i < P1; ++i) {
-        const float4 xr = xs[i];
-#pragma unroll
-        for (int c = 0; c < O2H_COLS; ++c) {
-            const float d = h2o_pair_d2(xr.x, xr.y, xr.z, yv[c]);
-            if (d < best[c]) {
-                best[c] = d;
-                best_i[c] = i;
-            }
-        }
-    }
 }
 
 // n . (y - x) with pinned rounding: three f32 differences, then
