@@ -5,14 +5,17 @@
 
 Phases (any failure exits non-zero and prints no result line):
 1. build the CUDA kernels from ops/csrc (one nvcc per source, in parallel),
-   print ptxas' registers and spills, and the SASS hot loop of #6, #8, #9
-   and #10 (instructions per pair, cuobjdump);
+   print ptxas' registers and spills, and the SASS hot loop of #2, #3, #6,
+   #8, #9 and #10 (instructions per pair, cuobjdump);
 2. serving kernels: check each against its plain PyTorch version on the
    card at the serving path's shapes (10240 frames = 64 clouds x 160
    frames, 778 hand rows, 2048 / 8192 object points) with ragged y_valid,
    one all-invalid cloud and x_valid=False frames; check that the two
    kernels' values are bit-identical on valid frames; time kernel, plain
-   version and torch.cdist(...).amin(-1) as the library yardstick;
+   version and torch.cdist(...).amin(-1) as the library yardstick; #2 and
+   #3 at the mask tiles 2048, 1024, 512, 256 and 128 (the tile sweep: the
+   share of pairs the mask keeps, cull_mask's ms, #3's and #2's ms; their
+   outputs bit-equal across tiles);
 3. training kernels (signed pair forward and backward, fused loss): check
    each against its plain version at 8192 points and 778 rows on 32 frames,
    with a ragged cloud, an all-zero padded slot and x_valid=False frames;
@@ -37,7 +40,12 @@ Phases (any failure exits non-zero and prints no result line):
    grad_y modes); time them at the R training shape (40960 frames against
    8192 points for #3 and 2048 for #4; #5 at 10240 x 778 x 2048) and hold
    them against their plain versions there too (#3/#4 on the 1/8 of the
-   frames the plain versions are timed on);
+   frames the plain versions are timed on); the tile sweep there (#2 at
+   the R shape too); then #2 and #3 on a scene whose minima tie across
+   cells (ragged, all-invalid and far clouds, x_valid=False frames, 778 x
+   4000 points) at tiles 2048, 640 and 128, under its own mask and under
+   masks that drop ~40% of the blocks: bit-equal to their plain versions,
+   #3 the same at every tile and equal to #4 on live frames;
 5. cluster kernels (#10 h2o over candidate cells, #11 its backward, #12
    o2h over candidate tiles, #13 its backward) on the R main path's own
    operands (sample hands in the canonical frames of a full-width batch,
@@ -47,8 +55,9 @@ Phases (any failure exits non-zero and prints no result line):
    at 40960 frames x 778 x 8192 with the selection stage; #10 on a tie
    scene with reversed candidate lists, an empty cell in each list, an
    all-invalid cloud and ids out of range, against its plain version;
-   then #8's, #9's and #10's registers, SASS instructions per pair, times,
-   bounds and issue floors side by side;
+   then #8's, #9's, #10's, #2's and #3's registers, SASS instructions per
+   pair, times, bounds and issue floors side by side (#2/#3 at the shipped
+   tile and at 2048, with the mask's kept share and ms);
 6. small GPU-vs-CPU parity: the serving pipeline, a G train step on the
    three dist routes and an R train step on all three h2o routes (same
    weights, batch and noise, dropout 0): loss and gradients must agree;
@@ -70,8 +79,9 @@ Phases (any failure exits non-zero and prints no result line):
 11. the R training main path, cull route: arch_refine, batch 64 x 160
    frames x 4 objects x 8192 points with target_h2o from TargetH2OCache,
    one warm-up step then 3 timed steps and the step's split; #2 and #3
-   must launch once per step; then 2 steps of the all-pairs route at 2048
-   points (#4 must launch);
+   must launch once per step; the tile sweep on the operands the step
+   hands #3; then 2 steps of the all-pairs route at 2048 points (#4 must
+   launch);
 12. launch/train_r.main on config/synthetic_smoke.yml on the card;
 13. the R training main path, cluster route (train.h2o_backend cluster):
    the same model and batch shape, 3 timed steps and the split; #10 must
@@ -252,47 +262,118 @@ def check_kernels() -> dict[str, dict]:
 
     # --- culled kernel at 8192 points, and bit-identity with all-pairs ----
     x, y, yv, xv, L = kernel_inputs(8192, seed=1)
-    tile = 2048
+    tile = CU.DEFAULT_TILE
     mask = CU.cull_mask(x, y, yv, tile, L, xv)
     ops = NN.prepare(x, y, yv, L)
     dc = CU.launch(*ops, mask, L, tile)
     torch.cuda.synchronize()
-    dcp = CU.plain(*ops, mask, L, tile)
+    dcp, plain_ms = cuda_timed(lambda: CU.plain(*ops, mask, L, tile))
     err = (dc - dcp).abs().max().item()
-    require(torch.allclose(dc, dcp, rtol=rtol, atol=0.0), f"h2o_cull vs plain: max abs err {err}")
+    require(torch.equal(dc, dcp), f"h2o_cull vs plain at tile {tile}: max abs err {err}")
     del dcp
     da, _ = NN.launch(*ops, L)
     torch.cuda.synchronize()
     valid_rows = (xv & yv.any(dim=1).repeat_interleave(L))[:, None].expand_as(dc)
     require(torch.equal(dc[valid_rows], da[valid_rows]), "h2o_cull and h2o_nn values differ on valid frames")
     require(bool((dc[~valid_rows] == CU.BIG).all()), "culled rows are not BIG")
-    print("h2o_cull and h2o_nn: bit-identical on valid frames", flush=True)
+    print(f"h2o_cull (tile {tile}) and h2o_nn: bit-identical on valid frames", flush=True)
     F, P1 = dc.shape
     G, P2 = y.shape[:2]
-    R, T = mask.shape[1:]
-    rows = torch.tensor([min(128, P1 - 128 * r) for r in range(R)], device=mask.device)
-    cols = torch.tensor([min(tile, P2 - tile * t) for t in range(T)], device=mask.device)
-    pairs = float((mask * rows[None, :, None] * cols[None, None, :]).sum())
-    n_bytes = x.numel() * 4 + y.numel() * 4 + mask.numel() * 4 + F * P1 * 4
-    b, by = bound_ms(n_bytes, pairs)
+    sweep = tile_sweep("h2o_cull's serving shape", x, y, yv, xv, L)
     xc = NN.centred_x(ops[0], ops[2], L).reshape(G, L * P1, 3)
     yc = ops[1][..., :3].contiguous()
     out["h2o_cull"] = dict(
-        kernel=CU.KERNEL, max_abs_err=err, shape=[F, P1, P2], run_fraction=mask.float().mean().item(),
-        ms=cuda_time_ms(lambda: CU.launch(*ops, mask, L, tile), reps=10),
-        plain_ms=cuda_time_ms(lambda: CU.plain(*ops, mask, L, tile), reps=1),
+        kernel=CU.KERNEL, max_abs_err=err, shape=[F, P1, P2], plain_ms=plain_ms,
         library_ms=cuda_time_ms(lambda: library_min(xc, yc), reps=2),
-        mask_ms=cuda_time_ms(lambda: CU.cull_mask(x, y, yv, tile, L, xv), reps=3),
         all_pairs_ms=cuda_time_ms(lambda: NN.launch(*ops, L), reps=5),
-        bound_ms=b, bound_by=by,
+        **cull_stats(sweep, "cull_ms"),
     )
     o = out["h2o_cull"]
-    print(f"h2o_cull F={F} P1={P1} P2={P2}: max_abs_err={err} ms={o['ms']:.4f} "
-          f"plain_ms={o['plain_ms']:.3f} library_ms={o['library_ms']:.3f} bound_ms={b:.4f} ({by}) "
-          f"run_fraction={o['run_fraction']:.4f} mask_ms={o['mask_ms']:.4f} "
-          f"h2o_nn at 8192 points ms={o['all_pairs_ms']:.4f}", flush=True)
+    print(f"h2o_cull F={F} P1={P1} P2={P2}: max_abs_err={err} ms={o['ms']:.4f} (tile {tile}; at tile 2048 "
+          f"{o['ms_2048']:.4f}) plain_ms={o['plain_ms']:.3f} library_ms={o['library_ms']:.3f} "
+          f"bound_ms={o['bound_ms']:.4f} ({o['bound_by']}) kept share={o['kept_share']:.4f} "
+          f"mask_ms={o['mask_ms']:.4f} h2o_nn at 8192 points ms={o['all_pairs_ms']:.4f}", flush=True)
     del x, y, ops, dc, da, xc, yc, mask
     torch.cuda.empty_cache()
+    return out
+
+
+def cull_pairs(mask, P1: int, P2: int, tile: int) -> float:
+    """The (real row, point) pairs of the blocks a cull mask [F, R, T] keeps:
+    the work of #2 and #3."""
+    import torch
+
+    R, T = mask.shape[1:]
+    rows = torch.tensor([min(128, P1 - 128 * r) for r in range(R)], device=mask.device, dtype=torch.float64)
+    cols = torch.tensor([min(tile, P2 - tile * t) for t in range(T)], device=mask.device, dtype=torch.float64)
+    return float(((mask != 0).double() * rows[None, :, None] * cols[None, None, :]).sum())
+
+
+SWEEP_TILES = (2048, 1024, 512, 256, 128)
+
+
+def tile_sweep(label: str, x, y, yv, xv, L: int, reps: int = 3) -> dict:
+    """#2 and #3 on one set of operands at the mask tiles SWEEP_TILES: per
+    tile the kept share (the pairs the mask keeps over all pairs of the
+    frames that search: x_valid with a valid point), the pairs, cull_mask's
+    ms, #3's and #2's ms; #3's and #2's outputs at every tile bit-equal to
+    those at tile 2048. One line; returns {tile: stats}."""
+    import torch
+
+    from oakink2_tamf_tpu_torch.ops import chamfer_cull as CU
+    from oakink2_tamf_tpu_torch.ops import chamfer_nn as NN
+
+    F, P1, _ = x.shape
+    P2 = y.shape[1]
+    live = xv & yv.any(dim=1).repeat_interleave(L)
+    ops = NN.prepare(x, y, yv, L)
+    base = sum(t.numel() * 4 for t in ops)
+    res, ref = {}, None
+    for tile in SWEEP_TILES:
+        mask = CU.cull_mask(x, y, yv, tile, L, xv)
+        got = (*CU.launch_dvec(*ops, mask, L, tile), CU.launch(*ops, mask, L, tile))
+        ref = ref or got
+        require(all(torch.equal(a, b) for a, b in zip(got, ref)),
+                f"{label}: h2o_cull_dvec / h2o_cull at tile {tile} differ from tile {SWEEP_TILES[0]}")
+        pairs = cull_pairs(mask, P1, P2, tile)
+        res[tile] = dict(
+            pairs=pairs, kept_share=pairs / max(1.0, float(live.sum()) * P1 * P2),
+            # each operand read once (x, y4 with its padding word, ctr, mask),
+            # each output written once (#2: d; #3: d and dvec)
+            bytes={"cull_ms": base + mask.numel() * 4 + F * P1 * 4,
+                   "dvec_ms": base + mask.numel() * 4 + F * P1 * 16},
+            mask_ms=cuda_time_ms(lambda: CU.cull_mask(x, y, yv, tile, L, xv), reps=reps),
+            dvec_ms=cuda_time_ms(lambda: CU.launch_dvec(*ops, mask, L, tile), reps=reps),
+            cull_ms=cuda_time_ms(lambda: CU.launch(*ops, mask, L, tile), reps=reps),
+        )
+        del mask, got
+    del ref
+    torch.cuda.empty_cache()
+    best = min(res, key=lambda t: res[t]["mask_ms"] + res[t]["dvec_ms"])
+    print(f"tile sweep ({label}, F={F} P1={P1} P2={P2}, {int(live.sum())} frames search; outputs bit-equal across "
+          f"tiles): " + "; ".join(f"{t}: kept {r['kept_share']:.4f} mask {r['mask_ms']:.3f} ms #3 {r['dvec_ms']:.3f} "
+                                  f"ms #2 {r['cull_ms']:.3f} ms" for t, r in res.items())
+          + f"; least mask + #3 at tile {best}", flush=True)
+    return res
+
+
+def cull_stats(sweep: dict, which: str) -> dict:
+    """A kernel's numbers at the shipped tile and at 2048 from a tile sweep
+    (which: "cull_ms" for #2, "dvec_ms" for #3): ms, kept pairs and share,
+    mask ms, bound (8 flops per kept pair, or the operands' bytes), issue
+    floor (7 instructions per kept pair)."""
+    from oakink2_tamf_tpu_torch.ops import chamfer_cull as CU
+
+    out = {}
+    for tile, sfx in ((CU.DEFAULT_TILE, ""), (2048, "_2048")):
+        r = sweep[tile]
+        out[f"ms{sfx}"] = r[which]
+        out[f"pairs{sfx}"] = r["pairs"]
+        out[f"kept_share{sfx}"] = r["kept_share"]
+        out[f"mask_ms{sfx}"] = r["mask_ms"]
+        out[f"issue_floor_ms{sfx}"] = issue_floor_ms(r["pairs"], 7)
+    b, by = bound_ms(sweep[CU.DEFAULT_TILE]["bytes"][which], sweep[CU.DEFAULT_TILE]["pairs"])
+    out.update(bound_ms=b, bound_by=by)
     return out
 
 
@@ -1452,7 +1533,7 @@ def check_r_kernels() -> dict[str, dict]:
     from oakink2_tamf_tpu_torch.ops import chamfer_nn as NN
 
     out = {}
-    tile = 2048
+    tile = CU.DEFAULT_TILE
     # --- correctness -----------------------------------------------------
     L = 8
     x, y, yv, xv, _ = kernel_inputs(TRAIN_P, G=4, L=L, seed=4)
@@ -1514,23 +1595,21 @@ def check_r_kernels() -> dict[str, dict]:
         ops = NN.prepare(x, y, yv, L)
         part = (F // 8, TRAIN_CLOUDS // 8)  # the plain version's 1/8 of the frames
         if name == "h2o_cull_dvec":
+            # #2 and #3 at the mask tiles 2048..128 (#2 at the R shape too);
+            # the numbers at the shipped tile and at 2048 from there
+            sweep = tile_sweep("chip_smoke's R shape", x, y, yv, xv, L)
+            extra = dict(cull_stats(sweep, "dvec_ms"), h2o_cull=cull_stats(sweep, "cull_ms"))
             mask = CU.cull_mask(x, y, yv, tile, L, xv)
-            R, T = mask.shape[1:]
-            rows = torch.tensor([min(128, P1 - 128 * r) for r in range(R)], device=mask.device)
-            cols = torch.tensor([min(tile, P2 - tile * t) for t in range(T)], device=mask.device)
-            pairs = float((mask * rows[None, :, None] * cols[None, None, :]).sum())
-            n_bytes = x.numel() * 4 + y.numel() * 4 + mask.numel() * 4 + F * P1 * 16
             kernel, run = CU.DVEC_KERNEL, (lambda: CU.launch_dvec(*ops, mask, L, tile))
             plain = (lambda: CU.plain_dvec(ops[0][: part[0]], ops[1][: part[1]], ops[2][: part[1]],
                                            mask[: part[0]], L, tile))
-            extra = {"run_fraction": mask.float().mean().item()}
         else:
             pairs = float(F * P1 * P2)
             n_bytes = x.numel() * 4 + y.numel() * 4 + F * P1 * 16
             kernel, run = NN.DVEC_KERNEL, (lambda: NN.launch_dvec(*ops, L))
             plain = lambda: NN.plain_dvec(ops[0][: part[0]], ops[1][: part[1]], ops[2][: part[1]], L)  # noqa: E731
-            extra = {}
-        b, by = bound_ms(n_bytes, pairs)
+            b, by = bound_ms(n_bytes, pairs)
+            extra = dict(ms=cuda_time_ms(run, reps=3), bound_ms=b, bound_by=by)
         # the kernel against its plain version at the main path's shapes, on
         # the frames the plain version is timed on: live rows bit-identical
         dk, dvk = (t[: part[0]] for t in run())
@@ -1549,10 +1628,9 @@ def check_r_kernels() -> dict[str, dict]:
         out[name] = dict(
             kernel=kernel, max_abs_err=max(err, err3 if name == "h2o_cull_dvec" else err4),
             shape=[F, P1, P2],
-            ms=cuda_time_ms(run, reps=3),
             plain_ms=8 * cuda_time_ms(plain, reps=1, warmup=0),
             library_ms=cuda_time_ms(lambda: library_min_dvec(xc, yc), reps=1),
-            bound_ms=b, bound_by=by, **extra,
+            **extra,
         )
         del x, y, yv, xv, ops, xc, yc
         if name == "h2o_cull_dvec":
@@ -1592,14 +1670,102 @@ def check_r_kernels() -> dict[str, dict]:
     for name in ("h2o_cull_dvec", "h2o_nn_dvec", "h2o_nn_bwd"):
         o = out[name]
         F, P1, P2 = o["shape"]
-        rf = f" run_fraction={o['run_fraction']:.4f}" if "run_fraction" in o else ""
-        print(f"{name} F={F} P1={P1} P2={P2}: ms={o['ms']:.4f} plain_ms={o['plain_ms']:.3f} "
-              f"library_ms={o['library_ms']:.3f} bound_ms={o['bound_ms']:.4f} ({o['bound_by']}){rf}",
-              flush=True)
+        rf = (f" (tile {tile}; at tile 2048 {o['ms_2048']:.4f}) kept share={o['kept_share']:.4f} "
+              f"mask_ms={o['mask_ms']:.4f}" if "ms_2048" in o else "")
+        print(f"{name} F={F} P1={P1} P2={P2}: ms={o['ms']:.4f}{rf} plain_ms={o['plain_ms']:.3f} "
+              f"library_ms={o['library_ms']:.3f} bound_ms={o['bound_ms']:.4f} ({o['bound_by']})", flush=True)
+    F, P1, P2 = out["h2o_cull_dvec"]["shape"]
+    o = out["h2o_cull_dvec"]["h2o_cull"]
+    print(f"h2o_cull at the R shape F={F} P1={P1} P2={P2}: ms={o['ms']:.4f} (tile {tile}; at tile 2048 "
+          f"{o['ms_2048']:.4f}) bound_ms={o['bound_ms']:.4f} ({o['bound_by']})", flush=True)
     print("plain_ms of h2o_cull_dvec and h2o_nn_dvec: 8 x the time on 1/8 of the frames", flush=True)
     del x, yy, yv, idx, xr, srt
     torch.cuda.empty_cache()
     return out
+
+
+def cull_scene(seed: int = 0, G: int = 4, L: int = 3, P1: int = 778, P2: int = 4000):
+    """(x, y, y_valid, x_valid, y_group) on the card, made with numpy:
+    hand-sized 128-row clusters near spatially sorted clouds; cloud 0 has
+    exact copies of every 7th point at +1 (the same cell), +128 and +256
+    (the next cells), so minima tie across cells; cloud 1 is ragged, cloud
+    2 all-invalid, cloud 3 sits 0.3 m away; frames 1 and 7 are
+    x_valid=False. 778 rows (a 10-row last region), 4000 points (a 32-point
+    last cell)."""
+    import numpy as np
+    import torch
+
+    from oakink2_tamf_tpu_torch.utils.pc_util import spatial_sort_indices
+
+    rng = np.random.default_rng(seed)
+    y = rng.normal(scale=0.05, size=(G, P2, 3))
+    for g in range(G):
+        y[g] = y[g][spatial_sort_indices(y[g])]
+    j = np.arange(0, P2 - 256, 7)
+    for off in (1, 128, 256):
+        y[0, j + off] = y[0, j]
+    y[3] += np.array([0.3, 0.0, 0.0])
+    F = G * L
+    centers = rng.normal(scale=0.05, size=(F, 7, 3))
+    x = centers[:, np.minimum(np.arange(P1) // 128, 6)] + rng.normal(scale=0.01, size=(F, P1, 3))
+    yv = np.ones((G, P2), bool)
+    yv[1, P2 // 3 :] = False
+    yv[2] = False
+    xv = np.ones(F, bool)
+    xv[[1, 7]] = False
+    f32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda()  # noqa: E731
+    return f32(x), f32(y), torch.from_numpy(yv).cuda(), torch.from_numpy(xv).cuda(), L
+
+
+def check_cull_edges() -> None:
+    """#2 and #3 on cull_scene at tiles 128, 640 and 2048: under the scene's
+    own mask and under masks that drop ~40% of the blocks (drop_mask), both
+    bit-equal to their plain versions; under the own mask #3 at every tile
+    bit-equal to #3 at tile 2048 and to #4 on live frames, #2 equal to #3's
+    values; rows whose every block is dropped (BIG, 0)."""
+    import torch
+
+    from oakink2_tamf_tpu_torch.ops import chamfer_cull as CU
+    from oakink2_tamf_tpu_torch.ops import chamfer_nn as NN
+
+    t0 = time.perf_counter()
+    x, y, yv, xv, L = cull_scene()
+    F, P1, _ = x.shape
+    P2 = y.shape[1]
+    ops = NN.prepare(x, y, yv, L)
+    live = xv & yv.any(dim=1).repeat_interleave(L)
+    d4, dv4 = NN.launch_dvec(*ops, L)
+    ref, shares, cases = None, [], 0
+    for tile in (2048, 640, 128):
+        for which in ("own", "drop"):
+            mask = CU.cull_mask(x, y, yv, tile, L, xv) if which == "own" else drop_mask(F, P1, P2, tile, seed=tile)
+            where = f"tile {tile}, {which} mask"
+            d = CU.launch(*ops, mask, L, tile)
+            d3, dv3 = CU.launch_dvec(*ops, mask, L, tile)
+            require(torch.equal(d, CU.plain(*ops, mask, L, tile)), f"h2o_cull differs from plain at {where}")
+            pd, pdv = CU.plain_dvec(*ops, mask, L, tile)
+            require(torch.equal(d3, pd) and torch.equal(dv3, pdv), f"h2o_cull_dvec differs from plain at {where}")
+            require(torch.equal(d, d3), f"h2o_cull and h2o_cull_dvec values differ at {where}")
+            cases += 1
+            if which == "drop":
+                require(bool((d3[4] == CU.BIG).all() and (dv3[4] == 0).all()),
+                        f"h2o_cull_dvec: a frame whose blocks are all dropped is not (BIG, 0) at {where}")
+                continue
+            shares.append(f"{tile}: {cull_pairs(mask, P1, P2, tile) / (float(live.sum()) * P1 * P2):.4f}")
+            ref = ref or (d3, dv3)
+            require(torch.equal(d3, ref[0]) and torch.equal(dv3, ref[1]), f"h2o_cull_dvec at {where} differs from "
+                    "tile 2048")
+            require(torch.equal(d3[live], d4[live]) and torch.equal(dv3[live], dv4[live]),
+                    f"h2o_cull_dvec and h2o_nn_dvec differ on live frames at {where}")
+    xc = NN.centred_x(ops[0], ops[2], L)
+    d2 = NN.sq_norm_rn(xc[:, :, None, :] - ops[1][..., :3].repeat_interleave(L, 0)[:, None])
+    ties = int(((d2 == ref[0][..., None]).sum(-1) > 1)[live].sum())
+    require(ties > 0, "the cull scene ties no minimum")
+    torch.cuda.synchronize()
+    print(f"h2o_cull / h2o_cull_dvec on the cull scene (F={F} P1={P1} P2={P2} y_group {L}; {ties} live rows whose "
+          f"minimum two points reach): {cases} cases (tiles 2048, 640, 128; own masks, kept share "
+          f"{', '.join(shares)}; masks dropping ~40% of the blocks) bit-equal to plain; #3 the same at every tile "
+          f"and equal to h2o_nn_dvec on live frames; in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 R_KERNELS = ("h2o_nn", "h2o_cull", "h2o_nn_dvec", "h2o_cull_dvec", "h2o_nn_bwd")
@@ -1718,6 +1884,7 @@ def r_train_main_path():
         RefineConfig, batch_recover_mano, multi_object_h2o_dist, refine_forward, sample_geometry,
         target_geometry,
     )
+    from oakink2_tamf_tpu_torch.ops import chamfer_cull as CU
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
@@ -1807,6 +1974,25 @@ def r_train_main_path():
     }
     print("R step split (ms, each alone on the same batch): "
           + "; ".join(f"{k} {v:.3f}" for k, v in split.items()), flush=True)
+
+    # #3's own operands on this path (the refined h2o hands them to
+    # h2o_cull_dvec), captured from one call, at the mask tiles 2048..128
+    seen = []
+    shipped = CU.h2o_cull_dvec
+
+    def capture(x, y, y_valid=None, **kw):
+        seen.append((x.detach(), y, y_valid, kw))
+        return shipped(x, y, y_valid, **kw)
+
+    CU.h2o_cull_dvec = capture
+    try:
+        refined_h2o()
+    finally:
+        CU.h2o_cull_dvec = shipped
+    x, y, yv, kw = seen[0]
+    require(kw.get("x_valid") is not None and (kw.get("tile") is None), "R: unexpected h2o_cull_dvec call")
+    tile_sweep("the R main path's refined h2o", x, y, yv, kw["x_valid"], kw["y_group"])
+    del seen, x, y, yv, kw
     del db, sg, res, tgt, s_verts, r_verts, r_pose
     torch.cuda.empty_cache()
     return state, counts, step_s
@@ -2546,7 +2732,7 @@ def main() -> int:
     for k in kernels:
         print("\n".join(ln for ln in k.ptxas_log.splitlines() if "Used" in ln or "spill" in ln))
     sass = {}
-    for k in (CS.KERNEL, CL.KERNEL, CL.CULL_KERNEL, CC.H2O_KERNEL):  # the pair searches' hot loop
+    for k in (CS.KERNEL, CL.KERNEL, CL.CULL_KERNEL, CC.H2O_KERNEL, CU.KERNEL, CU.DVEC_KERNEL):  # the pair searches' hot loop
         st = sass[k.name] = sass_inner_loop(k)
         print(f"{k.name} SASS hot loop: {st['instructions']} instructions, {st['fast_path']} without the row "
               f"merge, {st['pairs']} pairs: {st['fast_path'] / max(st['pairs'], 1):.3f} per pair; "
@@ -2566,16 +2752,24 @@ def main() -> int:
     check_cull_loss_edges()
     phase("R kernels")
     kstats.update(check_r_kernels())
+    check_cull_edges()
     phase("cluster kernels")
     kstats.update(check_cluster_kernels())
     check_topk_edges()
-    for name in ("dist_loss", "dist_loss_cull", "h2o_topk"):  # the redesigned searches side by side
+    for name in ("dist_loss", "dist_loss_cull", "h2o_topk", "h2o_cull", "h2o_cull_dvec"):  # the redesigned searches
         st, o = sass[name], kstats[name]
-        floor = issue_floor_ms(o["pairs"], 7 if name == "h2o_topk" else INSTR_PER_PAIR)
+        cells = name.startswith("h2o_")  # one search direction: 7 instructions per pair at least
+        floor = issue_floor_ms(o["pairs"], 7 if cells else INSTR_PER_PAIR)
+        extra = ""
+        if "ms_2048" in o:
+            extra = (f"; at tile 2048 {o['ms_2048']:.4f} ms (issue floor {o['issue_floor_ms_2048']:.4f} ms, kept share "
+                     f"{o['kept_share_2048']:.4f}, mask {o['mask_ms_2048']:.4f} ms); at tile {CU.DEFAULT_TILE} kept share "
+                     f"{o['kept_share']:.4f}, mask {o['mask_ms']:.4f} ms")
+        elif "all_pairs_ms" in o:
+            extra = f"; dist_loss on its operands {o['all_pairs_ms']:.4f} ms"
         print(f"{name}: {ptxas_registers(o['kernel'])} registers, {st['fast_path'] / max(st['pairs'], 1):.3f} SASS "
               f"instructions per pair, {o['ms']:.4f} ms at {o['shape']} (bound {o['bound_ms']:.4f} ms, issue "
-              f"floor {floor:.4f} ms)" + (f"; dist_loss on its operands {o['all_pairs_ms']:.4f} ms"
-                                          if "all_pairs_ms" in o else ""), flush=True)
+              f"floor {floor:.4f} ms){extra}", flush=True)
     phase("small pipeline parity")
     small_parity()
     phase("small train-step parity")

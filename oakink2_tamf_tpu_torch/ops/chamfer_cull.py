@@ -15,7 +15,21 @@ equal the all-pairs kernel's (ops/chamfer_nn.py) bit for bit: both kernels
 share one per-pair function (csrc/h2o_common.cuh).
 
 Kernel (csrc/h2o_cull.cu) design and bound: see the source; its work is
-8 flops per pair the mask keeps.
+8 flops per pair the mask keeps. Both kernels of this module run the cell
+search of csrc/h2o_cells_common.cuh over the 128-point cells of the tiles
+the mask keeps, so the mask's tile must be a multiple of 128 points.
+
+The wrappers' default tile is 128 points, not the JAX kernel's 2048. The
+values and first-min indices do not depend on the tile (a culled block's
+pairs are strictly farther than each row's minimum), so the tile only
+trades the mask's resolution against the cost of a culled block. On the
+TPU every grid step costs a pass of the matrix unit, so the coarsest tile
+wins there; here a culled cell costs nothing (it is left out of the cell
+list), a finer mask culls more pairs, and the mask costs about the same at
+any tile (the same centroid pass, reduced per tile). chip_smoke.py's tile
+sweep on an NVIDIA H100 80GB HBM3 (700 W), R training shape (40960 frames x
+778 rows x 8192 points): the mask keeps 0.743 of the pairs at tile 2048 and
+0.339 at 128; #3 takes 46.6 and 23.1 ms, the mask 46.7 and 49.1 ms.
 
 `h2o_cull_dvec` (csrc/h2o_cull_dvec.cu, its own kernel and launch count)
 replaces `_cull_dvec_kernel` (:204; `_cull_forward(with_dvec=True)`,
@@ -38,6 +52,7 @@ from . import chamfer_nn as NN
 from ._build import Kernel
 
 REGION_ROWS = 128
+DEFAULT_TILE = 128  # mask tile of the wrappers, in points (module docstring)
 BIG = NN.BIG
 _MASK_CHUNK_ELEMS = 1 << 27  # bound on groups * L*R * P2 per mask step
 
@@ -170,6 +185,8 @@ def plain_dvec(x, y4, ctr, mask, y_group: int, tile: int):
 
 
 def _check_operands(x, y4, ctr, mask, y_group: int, tile: int) -> None:
+    if tile <= 0 or tile % REGION_ROWS:
+        raise ValueError(f"tile {tile} is not a multiple of {REGION_ROWS} points: the kernels search 128-point cells")
     F, P1, _ = x.shape
     G, P2, _ = y4.shape
     R = (P1 + REGION_ROWS - 1) // REGION_ROWS
@@ -223,13 +240,15 @@ def h2o_cull(
     y: torch.Tensor,  # [G, P2, 3], G = F // y_group
     y_valid: torch.Tensor | None = None,
     *,
-    tile: int = 2048,
+    tile: int = DEFAULT_TILE,
     y_group: int = 1,
     x_valid: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Min squared distance [F, P1] of each row over its cloud, with culled
     blocks skipped. Equal to ops/chamfer_nn.h2o_nn's values on frames with
-    x_valid=True; x_valid=False frames cull every tile and come out BIG."""
+    x_valid=True; x_valid=False frames cull every tile and come out BIG.
+    The result does not depend on `tile` (a multiple of 128 points on the
+    card); the default of 128 culls the most (module docstring)."""
     tile = min(tile, _round_up(y.shape[1], 128))
     mask = cull_mask(x, y, y_valid, tile, y_group, x_valid)
     ops = NN.prepare(x, y, y_valid, y_group)
@@ -245,14 +264,15 @@ def h2o_cull_dvec(
     y: torch.Tensor,  # [G, P2, 3], G = F // y_group
     y_valid: torch.Tensor | None = None,
     *,
-    tile: int = 2048,
+    tile: int = DEFAULT_TILE,
     y_group: int = 1,
     x_valid: torch.Tensor | None = None,
 ):
     """(min squared distance [F, P1], dvec [F, P1, 3]) with culled blocks
     skipped: `h2o_cull`'s values and dvec = x - y* at the first minimum
     (centred). Rows that took no point (x_valid=False frames, all-invalid
-    clouds) come out BIG with dvec = 0."""
+    clouds) come out BIG with dvec = 0. Like `h2o_cull`, the result does not
+    depend on `tile`."""
     tile = min(tile, _round_up(y.shape[1], 128))
     mask = cull_mask(x, y, y_valid, tile, y_group, x_valid)
     ops = NN.prepare(x, y, y_valid, y_group)

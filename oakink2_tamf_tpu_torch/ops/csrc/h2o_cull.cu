@@ -1,41 +1,38 @@
-// Bounds-culled exact hand->object nearest distance (h2o), forward only.
+// Bounds-culled exact hand->object nearest distance (h2o), forward only:
+// kernel #2.
 //
 // Replaces the TPU kernel oakink2_tamf_tpu/ops/chamfer_cull.py
 // `_cull_fwd_kernel` (:179, pallas_call in `_cull_forward(with_dvec=False)`
 // at :307): the min over y of ||x_i - y_j||^2 like h2o_nn.cu, skipping every
 // (frame, 128-row region, y-tile) block whose triangle-inequality bound says
 // it cannot hold a row's minimum. The skip mask [F, R, T] comes from
-// ops/chamfer_cull.cull_mask (plain PyTorch, as the TPU path's is XLA).
+// ops/chamfer_cull.cull_mask (plain PyTorch, as the TPU path's is XLA); its
+// tile is a multiple of 128 points. A row whose every tile is culled
+// (x_valid=False frames, all-invalid clouds) comes out BIG.
 //
-// Bound: floating-point work, 8 flops per pair the mask keeps. Design for
-// that bound: the h2o_nn.cu block shape (one block per frame x region, one
-// row per thread, y staged through shared memory); the block reads its mask
-// row and jumps over culled tiles (h2o_cull_row_scan, shared with
-// h2o_cull_dvec.cu; the index it keeps is dead code here). A row whose every
-// tile is culled (x_valid=False frames, all-invalid clouds) comes out BIG.
+// Bound: floating-point work, 8 flops per (real row, point) pair of the
+// blocks the mask keeps; the search issues at least 7 instructions per pair
+// (the pinned distance's 6 and a minimum).
+//
+// Design: h2o_cells_common.cuh's cell search, shared with #3 and #10
+// (h2o_cull_cells_block): one block of CELLS_THREADS per (frame, region);
+// the region's kept tiles, listed as the 128-point cells they hold, are
+// split among 4 warp sets, each thread holding 4 rows (one broadcast
+// shared load feeds 4 pairs) and keeping a per-segment fminf. With the mask
+// at the port's tile of 128 points (ops/chamfer_cull.h2o_cull) a cell is
+// searched only if its own bound can hold a row's minimum. No index is
+// kept, so the winning segment is not re-scanned.
 
-#include "h2o_common.cuh"
+#include "h2o_cells_common.cuh"
 
-__global__ void __launch_bounds__(H2O_REGION_ROWS)
+__global__ void __launch_bounds__(CELLS_THREADS, CELLS_MIN_BLOCKS)
 h2o_cull_kernel(const float* __restrict__ x,     // [F, P1, 3]
                 const float4* __restrict__ y,    // [G, P2] centred, invalid at 1e15
                 const float* __restrict__ ctr,   // [G, 3]
                 const int* __restrict__ mask,    // [F, R, T] 1 = run the block
                 float* __restrict__ d_out,       // [F, P1]
                 int P1, int P2, int y_group, int R, int T, int tile) {
-    __shared__ float4 ys[H2O_Y_STAGE];
-    const long long blk = blockIdx.x;
-    const int f = (int)(blk / R);
-    const int r = (int)(blk - (long long)f * R);
-    const int g = f / y_group;
-    const int row = r * H2O_REGION_ROWS + threadIdx.x;
-    float x0, x1, x2;
-    const bool live = h2o_load_row(x, ctr, f, g, row, P1, x0, x1, x2);
-    float best;
-    int best_j;  // unused here: h2o_cull_dvec.cu reads it
-    h2o_cull_row_scan(ys, y + (size_t)g * P2, mask + ((size_t)f * R + r) * T, T, tile, P2, live,
-                      x0, x1, x2, best, best_j);
-    if (live) d_out[(size_t)f * P1 + row] = best;
+    h2o_cull_cells_block<false>(x, y, ctr, mask, d_out, nullptr, P1, P2, y_group, R, T, tile);
 }
 
 extern "C" int h2o_cull_launch(const float* x, const float4* y, const float* ctr,
@@ -43,9 +40,10 @@ extern "C" int h2o_cull_launch(const float* x, const float4* y, const float* ctr
                                int F, int P1, int P2, int y_group, int T, int tile,
                                cudaStream_t stream) {
     if (F <= 0 || P1 <= 0) return 0;
-    const int R = (P1 + H2O_REGION_ROWS - 1) / H2O_REGION_ROWS;
-    const unsigned blocks = (unsigned)((long long)F * R);
-    h2o_cull_kernel<<<blocks, H2O_REGION_ROWS, 0, stream>>>(
+    if (tile <= 0 || tile % CELL_PTS != 0) return (int)cudaErrorInvalidValue;
+    const int R = (P1 + CELL_PTS - 1) / CELL_PTS;
+    const size_t smem = h2o_cull_cells_smem(h2o_cull_kernel, P2);
+    h2o_cull_kernel<<<(unsigned)((long long)F * R), CELLS_THREADS, smem, stream>>>(
         x, y, ctr, mask, d_out, P1, P2, y_group, R, T, tile);
     return (int)cudaGetLastError();
 }
