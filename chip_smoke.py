@@ -5,14 +5,15 @@
 
 Phases (any failure exits non-zero and prints no result line):
 1. build the CUDA kernels from ops/csrc (one nvcc per source, in parallel),
-   print ptxas' registers and spills, and the SASS hot loop of #2, #3, #6,
+   print ptxas' registers and spills, and the SASS hot loop of #1-#4, #6,
    #8, #9 and #10 (instructions per pair, cuobjdump);
 2. serving kernels: check each against its plain PyTorch version on the
    card at the serving path's shapes (10240 frames = 64 clouds x 160
    frames, 778 hand rows, 2048 / 8192 object points) with ragged y_valid,
    one all-invalid cloud and x_valid=False frames; check that the two
    kernels' values are bit-identical on valid frames; time kernel, plain
-   version and torch.cdist(...).amin(-1) as the library yardstick; #2 and
+   version and torch.cdist(...).amin(-1) as the library yardstick (#1's
+   bound counts each row against the valid points of its cloud); #2 and
    #3 at the mask tiles 2048, 1024, 512, 256 and 128 (the tile sweep: the
    share of pairs the mask keeps, cull_mask's ms, #3's and #2's ms; their
    outputs bit-equal across tiles);
@@ -45,7 +46,11 @@ Phases (any failure exits non-zero and prints no result line):
    cells (ragged, all-invalid and far clouds, x_valid=False frames, 778 x
    4000 points) at tiles 2048, 640 and 128, under its own mask and under
    masks that drop ~40% of the blocks: bit-equal to their plain versions,
-   #3 the same at every tile and equal to #4 on live frames;
+   #3 the same at every tile and equal to #4 on live frames; then #1 and #4
+   on the all-pairs tie scene (copies across cells, an all-invalid middle
+   cell, ragged and all-invalid clouds, x_valid=False frames; 778 x 2000
+   points, y_group 3 and 1): values, indices and dvec bit-equal to their
+   plain versions, #4 equal to #3 on live frames;
 5. cluster kernels (#10 h2o over candidate cells, #11 its backward, #12
    o2h over candidate tiles, #13 its backward) on the R main path's own
    operands (sample hands in the canonical frames of a full-width batch,
@@ -55,9 +60,11 @@ Phases (any failure exits non-zero and prints no result line):
    at 40960 frames x 778 x 8192 with the selection stage; #10 on a tie
    scene with reversed candidate lists, an empty cell in each list, an
    all-invalid cloud and ids out of range, against its plain version;
-   then #8's, #9's, #10's, #2's and #3's registers, SASS instructions per
-   pair, times, bounds and issue floors side by side (#2/#3 at the shipped
-   tile and at 2048, with the mask's kept share and ms);
+   then #8's, #9's, #10's, #2's, #3's, #1's and #4's registers, SASS
+   instructions per pair, times, bounds and issue floors side by side
+   (#2/#3 at the shipped tile and at 2048, with the mask's kept share and
+   ms; #1/#4 with their valid and searched pairs and the share of cells
+   with a valid point);
 6. small GPU-vs-CPU parity: the serving pipeline, a G train step on the
    three dist routes and an R train step on all three h2o routes (same
    weights, batch and noise, dropout 0): loss and gradients must agree;
@@ -80,8 +87,10 @@ Phases (any failure exits non-zero and prints no result line):
    frames x 4 objects x 8192 points with target_h2o from TargetH2OCache,
    one warm-up step then 3 timed steps and the step's split; #2 and #3
    must launch once per step; the tile sweep on the operands the step
-   hands #3; then 2 steps of the all-pairs route at 2048 points (#4 must
-   launch);
+   hands #3; then the same on the all-pairs route at 2048 points (#1 and
+   #4 once per step, no culled kernel), its split, and #1 and #4 timed on
+   the operands the step hands them, with the share of cells that hold a
+   valid point;
 12. launch/train_r.main on config/synthetic_smoke.yml on the card;
 13. the R training main path, cluster route (train.h2o_backend cluster):
    the same model and batch shape, 3 timed steps and the split; #10 must
@@ -226,37 +235,39 @@ def check_kernels() -> dict[str, dict]:
     from oakink2_tamf_tpu_torch.ops import chamfer_nn as NN
 
     out = {}
-    # tolerance kernel vs plain: the plain version repeats the kernel's
-    # rounding (f32 subtract, f32 mul, two once-rounded fmas), so only a
-    # rare double rounding in its f64 fma emulation may differ: 1 ulp
-    rtol = 2.0**-23
     # --- all-pairs kernel at 2048 points --------------------------------
+    # the plain version repeats the kernel's rounding (f32 subtract, f32
+    # mul, two once-rounded fmas): bit-equal
     x, y, yv, xv, L = kernel_inputs(2048)
     ops = NN.prepare(x, y, yv, L)
     d, idx = NN.launch(*ops, L)
     torch.cuda.synchronize()
     dp, ip = NN.plain(*ops, L)
     err = (d - dp).abs().max().item()
-    require(torch.allclose(d, dp, rtol=rtol, atol=0.0), f"h2o_nn vs plain: max abs err {err}")
+    require(torch.equal(d, dp), f"h2o_nn vs plain: max abs err {err}")
     require(torch.equal(idx, ip), "h2o_nn argmin differs from the plain version")
     del dp, ip
     F, P1 = d.shape
     G, P2 = y.shape[:2]
     xc = NN.centred_x(ops[0], ops[2], L).reshape(G, L * P1, 3)
     yc = ops[1][..., :3].contiguous()
-    n_bytes = x.numel() * 4 + y.numel() * 4 + F * P1 * 8
-    b, by = bound_ms(n_bytes, F * P1 * P2)
+    # the prepared operands and the cell flags read once, d and idx written
+    # once; the work: each row against each valid point of its cloud
+    w = all_pairs_work(yv, L, P1)
+    n_bytes = sum(t.numel() * 4 for t in ops) + G * (-(-P2 // 128)) + F * P1 * 8
+    b, by = bound_ms(n_bytes, w["pairs"])
     out["h2o_nn"] = dict(
         kernel=NN.KERNEL, max_abs_err=err, shape=[F, P1, P2],
         ms=cuda_time_ms(lambda: NN.launch(*ops, L), reps=10),
         plain_ms=cuda_time_ms(lambda: NN.plain(*ops, L), reps=1),
         library_ms=cuda_time_ms(lambda: library_min(xc, yc), reps=3),
-        bound_ms=b, bound_by=by,
+        bound_ms=b, bound_by=by, **w,
     )
     o = out["h2o_nn"]
     print(f"h2o_nn   F={F} P1={P1} P2={P2}: max_abs_err={err} ms={o['ms']:.4f} "
           f"plain_ms={o['plain_ms']:.3f} library_ms={o['library_ms']:.3f} "
-          f"bound_ms={b:.4f} ({by})", flush=True)
+          f"bound_ms={b:.4f} ({by}; {w['pairs']:.6g} valid pairs, {w['searched']:.6g} searched, cells with a "
+          f"valid point {w['cell_share']:.4f})", flush=True)
     del x, y, ops, d, idx, xc, yc
     torch.cuda.empty_cache()
 
@@ -1604,12 +1615,14 @@ def check_r_kernels() -> dict[str, dict]:
             plain = (lambda: CU.plain_dvec(ops[0][: part[0]], ops[1][: part[1]], ops[2][: part[1]],
                                            mask[: part[0]], L, tile))
         else:
-            pairs = float(F * P1 * P2)
-            n_bytes = x.numel() * 4 + y.numel() * 4 + F * P1 * 16
+            # the prepared operands and the cell flags read once, d and dvec
+            # written once; each row against each valid point of its cloud
+            w = all_pairs_work(yv, L, P1)
+            n_bytes = sum(t.numel() * 4 for t in ops) + TRAIN_CLOUDS * (-(-P2 // 128)) + F * P1 * 16
             kernel, run = NN.DVEC_KERNEL, (lambda: NN.launch_dvec(*ops, L))
             plain = lambda: NN.plain_dvec(ops[0][: part[0]], ops[1][: part[1]], ops[2][: part[1]], L)  # noqa: E731
-            b, by = bound_ms(n_bytes, pairs)
-            extra = dict(ms=cuda_time_ms(run, reps=3), bound_ms=b, bound_by=by)
+            b, by = bound_ms(n_bytes, w["pairs"])
+            extra = dict(ms=cuda_time_ms(run, reps=3), bound_ms=b, bound_by=by, **w)
         # the kernel against its plain version at the main path's shapes, on
         # the frames the plain version is timed on: live rows bit-identical
         dk, dvk = (t[: part[0]] for t in run())
@@ -1672,6 +1685,9 @@ def check_r_kernels() -> dict[str, dict]:
         F, P1, P2 = o["shape"]
         rf = (f" (tile {tile}; at tile 2048 {o['ms_2048']:.4f}) kept share={o['kept_share']:.4f} "
               f"mask_ms={o['mask_ms']:.4f}" if "ms_2048" in o else "")
+        if "cell_share" in o:
+            rf = (f" ({o['pairs']:.6g} valid pairs, {o['searched']:.6g} searched, cells with a valid point "
+                  f"{o['cell_share']:.4f})")
         print(f"{name} F={F} P1={P1} P2={P2}: ms={o['ms']:.4f}{rf} plain_ms={o['plain_ms']:.3f} "
               f"library_ms={o['library_ms']:.3f} bound_ms={o['bound_ms']:.4f} ({o['bound_by']})", flush=True)
     F, P1, P2 = out["h2o_cull_dvec"]["shape"]
@@ -1766,6 +1782,82 @@ def check_cull_edges() -> None:
           f"minimum two points reach): {cases} cases (tiles 2048, 640, 128; own masks, kept share "
           f"{', '.join(shares)}; masks dropping ~40% of the blocks) bit-equal to plain; #3 the same at every tile "
           f"and equal to h2o_nn_dvec on live frames; in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def nn_scene(seed: int = 0, G: int = 4, L: int = 3, P1: int = 778, P2: int = 2000):
+    """(x, y, y_valid, x_valid, y_group) on the card, made with numpy: the
+    tie scene of the all-pairs searches (tests/test_torch_nn_cells.py).
+    Hand-sized 128-row clusters near spatially sorted clouds; clouds 0 and
+    3 have exact copies of every 7th point at +1, +128 and +256; cloud 1 is
+    ragged, cloud 2 all-invalid, cloud 3's cell 7 all-invalid with valid
+    cells after it; frames 1 and 10 are x_valid=False. 778 rows (a 10-row
+    last region), 2000 points (an 80-point last cell)."""
+    import numpy as np
+    import torch
+
+    from oakink2_tamf_tpu_torch.utils.pc_util import spatial_sort_indices
+
+    rng = np.random.default_rng(seed)
+    y = rng.normal(scale=0.05, size=(G, P2, 3))
+    for g in range(G):
+        y[g] = y[g][spatial_sort_indices(y[g])]
+    j = np.arange(0, P2 - 256, 7)
+    for off in (1, 128, 256):
+        for g in (0, 3):
+            y[g, j + off] = y[g, j]
+    F = G * L
+    centers = rng.normal(scale=0.05, size=(F, 7, 3))
+    x = centers[:, np.minimum(np.arange(P1) // 128, 6)] + rng.normal(scale=0.01, size=(F, P1, 3))
+    yv = np.ones((G, P2), bool)
+    yv[1, P2 // 3 :] = False
+    yv[2] = False
+    yv[3, 7 * 128 : 8 * 128] = False
+    xv = np.ones(F, bool)
+    xv[[1, 10]] = False
+    f32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda()  # noqa: E731
+    return f32(x), f32(y), torch.from_numpy(yv).cuda(), torch.from_numpy(xv).cuda(), L
+
+
+def check_nn_edges() -> None:
+    """#1 and #4 on nn_scene at y_group 3 and 1 (one cloud per frame):
+    values, first-min indices and dvec bit-equal to their plain versions
+    (the full search); #4's values equal #1's; #4 equal to #3 (its own mask
+    at the shipped tile) on live frames; x_valid=False frames searched."""
+    import torch
+
+    from oakink2_tamf_tpu_torch.ops import chamfer_cull as CU
+    from oakink2_tamf_tpu_torch.ops import chamfer_nn as NN
+
+    t0 = time.perf_counter()
+    x, y, yv, xv, L = nn_scene()
+    ties = 0
+    for gl in (L, 1):
+        yy, yyv = (y, yv) if gl == L else (y.repeat_interleave(L, 0).contiguous(), yv.repeat_interleave(L, 0))
+        ops = NN.prepare(x, yy, yyv, gl)
+        d, idx = NN.launch(*ops, gl)
+        d4, dvec = NN.launch_dvec(*ops, gl)
+        pd, pidx = NN.plain(*ops, gl)
+        pd4, pdvec = NN.plain_dvec(*ops, gl)
+        where = f"the all-pairs tie scene, y_group {gl}"
+        require(torch.equal(d, pd) and torch.equal(idx, pidx), f"h2o_nn differs from plain on {where}")
+        require(torch.equal(d4, pd4) and torch.equal(dvec, pdvec), f"h2o_nn_dvec differs from plain on {where}")
+        require(torch.equal(d, d4), f"h2o_nn and h2o_nn_dvec values differ on {where}")
+        took = yyv.any(1).repeat_interleave(gl)
+        require(bool((d[~xv & took] < NN.BIG).all()), f"h2o_nn: x_valid=False frames not searched on {where}")
+        if gl == L:
+            d3, dv3 = CU.launch_dvec(*ops, CU.cull_mask(x, y, yv, CU.DEFAULT_TILE, L, xv), L, CU.DEFAULT_TILE)
+            live = xv & took
+            require(torch.equal(d3[live], d4[live]) and torch.equal(dv3[live], dvec[live]),
+                    "h2o_nn_dvec and h2o_cull_dvec differ on live frames of the all-pairs tie scene")
+            xc = NN.centred_x(ops[0], ops[2], L)
+            d2 = NN.sq_norm_rn(xc[:, :, None, :] - ops[1][..., :3].repeat_interleave(L, 0)[:, None])
+            ties = int(((d2 == d[..., None]).sum(-1) > 1)[took].sum())
+            require(ties > 0, "the all-pairs tie scene ties no minimum")
+    torch.cuda.synchronize()
+    print(f"h2o_nn / h2o_nn_dvec on the all-pairs tie scene (F={x.shape[0]} P1={x.shape[1]} P2={y.shape[1]}, "
+          f"y_group {L} and 1; {ties} rows whose minimum two points reach; an invalid middle cell, a ragged and an "
+          f"all-invalid cloud, x_valid=False frames): values, indices and dvec bit-equal to plain; #4 equal to #3 "
+          f"on live frames; in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 R_KERNELS = ("h2o_nn", "h2o_cull", "h2o_nn_dvec", "h2o_cull_dvec", "h2o_nn_bwd")
@@ -1871,12 +1963,35 @@ def small_r_train_parity() -> None:
               f"worst relative grad diff {worst:.2e}", flush=True)
 
 
-def r_train_main_path():
+def all_pairs_work(yv, L: int, P1: int) -> dict:
+    """The work of #1/#4 on clouds with validity yv [G, P2], y_group L, P1
+    rows: `pairs`, each real row against each valid point of its cloud (the
+    bound's work); `searched`, the pairs the cell search walks (the rows of
+    each 128-row region rounded up to a multiple of 32, against the 128
+    points of every cell that holds a valid point); `cell_share`, the cells
+    with a valid point over all cells."""
+    import torch
+
+    G, P2 = yv.shape
+    C = -(-P2 // 128)
+    cells = torch.nn.functional.pad(yv, (0, C * 128 - P2)).reshape(G, C, 128).any(-1)
+    rows = sum(32 * -(-min(128, P1 - r0) // 32) for r0 in range(0, P1, 128))
+    return dict(pairs=float(yv.sum()) * L * P1, searched=float(cells.sum()) * 128 * L * rows,
+                cell_share=float(cells.float().mean()))
+
+
+def r_train_main_path(route: str = "cull"):
     """R training at full width: arch_refine (dropout 0.1), batch 64 x 160
-    frames x 4 objects x 8192 points, target_h2o from TargetH2OCache, sample
-    from the Gaussian-perturb adaptor; one warm-up step, then 3 timed steps
-    with the counts set to 0 just before; then the split of a step on the
-    same batch."""
+    frames x 4 objects, target_h2o from TargetH2OCache, sample from the
+    Gaussian-perturb adaptor; on the cull route (8192 points: #2 and #3) or
+    the all-pairs route (2048 points, the repo default cloud: #1 and #4).
+    One warm-up step, then 3 timed steps with the counts set to 0 just
+    before; then the split of a step on the same batch; then the kernels on
+    the operands the step hands them, captured from one call: on the cull
+    route the tile sweep of #3's, on the all-pairs route #1's (sample h2o)
+    and #4's (refined h2o), each timed with its valid-cell share. Uses only
+    the package's entry points and wrappers, so r_step_ab.py can run it on
+    an earlier tree's package."""
     import torch
 
     from oakink2_tamf_tpu_torch.models import losses as LL
@@ -1885,19 +2000,24 @@ def r_train_main_path():
         target_geometry,
     )
     from oakink2_tamf_tpu_torch.ops import chamfer_cull as CU
+    from oakink2_tamf_tpu_torch.ops import chamfer_nn as NN
 
+    cull = route == "cull"
+    require(route in ("cull", "all-pairs"), f"unknown R route {route}")
+    P = TRAIN_P if cull else R_ALL_PAIRS_P
+    label = f"R main path ({route} route, {P} points)"
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     state, step, mano, assets = _r_training(dev, RefineConfig(), "auto")
-    db, pre = _r_batch(TRAIN_BS, TRAIN_L, TRAIN_NOBJ, TRAIN_P, 11, mano, dev)
+    db, pre = _r_batch(TRAIN_BS, TRAIN_L, TRAIN_NOBJ, P, 11, mano, dev)
     torch.cuda.synchronize()
-    print(f"R main path: model + batch {time.perf_counter() - t0:.2f} s, of which the target-h2o cache "
+    print(f"{label}: model + batch {time.perf_counter() - t0:.2f} s, of which the target-h2o cache "
           f"precompute ({TRAIN_BS} segments on the card) {pre:.3f} s "
           f"({sum(p.numel() for p in state.model.parameters())} parameters)", flush=True)
     t0 = time.perf_counter()
     step(state, db)
     torch.cuda.synchronize()
-    print(f"R main path: warm-up step {time.perf_counter() - t0:.3f} s", flush=True)
+    print(f"{label}: warm-up step {time.perf_counter() - t0:.3f} s", flush=True)
 
     before = [p.detach().clone() for p in state.model.parameters()]
     kernels = _r_kernel_objects()
@@ -1913,13 +2033,17 @@ def r_train_main_path():
     counts = {n: k.launches for n, k in kernels.items()}
     peak = torch.cuda.max_memory_allocated() / 2**30
     step_s = sum(times) / len(times)
-    print(f"R main path (cull route): steps {[round(t, 4) for t in times]} s, mean {step_s:.4f} s = "
+    print(f"{label}: steps {[round(t, 4) for t in times]} s, mean {step_s:.4f} s = "
           f"{TRAIN_BS / step_s:.3f} samples/s; losses {losses}; peak memory {peak:.2f} GiB; "
           f"launches {counts}", flush=True)
-    require(all(v == v and abs(v) < float("inf") for v in losses), "R: non-finite training loss")
-    require(any(not torch.equal(a, b) for a, b in zip(before, state.model.parameters())), "R: parameters unchanged")
-    require(counts["h2o_cull"] == 3, f"R: h2o_cull (sample geometry) launched {counts['h2o_cull']} times in 3 steps")
-    require(counts["h2o_cull_dvec"] == 3, f"R: h2o_cull_dvec launched {counts['h2o_cull_dvec']} times in 3 steps")
+    require(all(v == v and abs(v) < float("inf") for v in losses), f"{label}: non-finite training loss")
+    require(any(not torch.equal(a, b) for a, b in zip(before, state.model.parameters())),
+            f"{label}: parameters unchanged")
+    # once per step each: the sample geometry's search and the refined one's
+    sample_k, refined_k = ("h2o_cull", "h2o_cull_dvec") if cull else ("h2o_nn", "h2o_nn_dvec")
+    for name in kernels:
+        want = 3 if name in (sample_k, refined_k) else 0
+        require(counts[name] == want, f"{label}: {name} launched {counts[name]} times in 3 steps, expected {want}")
     del before
 
     # where the step's time goes, each piece alone on the same batch
@@ -1963,70 +2087,66 @@ def r_train_main_path():
              ("refine_hand_joints", "refine_hand_verts", "refine_h2o_dist")}
         LL.segment_refine_loss(assets, LL.RefineLossConfig(), {**o, **tgt}, db)[0].backward()
 
+    s_name, r_name = ("cull mask + h2o_cull", "cull mask + h2o_cull_dvec") if cull else ("h2o_nn", "h2o_nn_dvec")
     split = {
         "sample MANO with normals (no grad)": cuda_time_ms(sample_mano, reps=3),
-        "sample h2o (cull mask + h2o_cull, no grad)": cuda_time_ms(sample_h2o, reps=3),
+        f"sample h2o ({s_name}, no grad)": cuda_time_ms(sample_h2o, reps=3),
         "R forward+backward": cuda_time_ms(r_fwd_bwd, reps=3),
         "refined MANO with normals forward+backward": cuda_time_ms(refined_mano, reps=3),
-        "refined h2o (cull mask + h2o_cull_dvec) forward+backward": cuda_time_ms(refined_h2o, reps=3),
+        f"refined h2o ({r_name}) forward+backward": cuda_time_ms(refined_h2o, reps=3),
         "loss forward+backward": cuda_time_ms(loss_pass, reps=3),
         "optimizer (clip + AdamW + LR)": cuda_time_ms(state.optimizer.step, reps=3),
     }
-    print("R step split (ms, each alone on the same batch): "
+    print(f"{label.replace('main path', 'step split')} (ms, each alone on the same batch): "
           + "; ".join(f"{k} {v:.3f}" for k, v in split.items()), flush=True)
 
-    # #3's own operands on this path (the refined h2o hands them to
-    # h2o_cull_dvec), captured from one call, at the mask tiles 2048..128
-    seen = []
-    shipped = CU.h2o_cull_dvec
+    # the operands the step hands its kernels, captured from one call
+    seen = {}
 
-    def capture(x, y, y_valid=None, **kw):
-        seen.append((x.detach(), y, y_valid, kw))
-        return shipped(x, y, y_valid, **kw)
+    def capture(mod, fn_name, key, run):
+        shipped = getattr(mod, fn_name)
 
-    CU.h2o_cull_dvec = capture
-    try:
-        refined_h2o()
-    finally:
-        CU.h2o_cull_dvec = shipped
-    x, y, yv, kw = seen[0]
-    require(kw.get("x_valid") is not None and (kw.get("tile") is None), "R: unexpected h2o_cull_dvec call")
-    tile_sweep("the R main path's refined h2o", x, y, yv, kw["x_valid"], kw["y_group"])
-    del seen, x, y, yv, kw
+        def wrapped(x, y, y_valid=None, *a, **kw):
+            seen[key] = (x.detach(), y, y_valid, a, kw)
+            return shipped(x, y, y_valid, *a, **kw)
+
+        setattr(mod, fn_name, wrapped)
+        try:
+            run()
+        finally:
+            setattr(mod, fn_name, shipped)
+
+    if cull:
+        # #3's own operands (the refined h2o hands them to h2o_cull_dvec) at
+        # the mask tiles 2048..128
+        capture(CU, "h2o_cull_dvec", "dvec", refined_h2o)
+        x, y, yv, _, kw = seen["dvec"]
+        require(kw.get("x_valid") is not None and (kw.get("tile") is None), "R: unexpected h2o_cull_dvec call")
+        tile_sweep("the R main path's refined h2o", x, y, yv, kw["x_valid"], kw["y_group"])
+    else:
+        # #1's (sample h2o) and #4's (refined h2o) own operands: times, the
+        # share of cells with a valid point, the work and its bounds
+        capture(NN, "h2o_nn", "nn", sample_h2o)
+        capture(NN, "h2o_nn_dvec", "dvec", refined_h2o)
+        for key, launch in (("nn", NN.launch), ("dvec", NN.launch_dvec)):
+            x, y, yv, a, kw = seen[key]
+            L = (a + (kw.get("y_group", 1),))[0]
+            ops = NN.prepare(x, y, yv, L)
+            F, P1, _ = x.shape
+            w = all_pairs_work(yv if yv is not None else torch.ones(y.shape[:2], dtype=torch.bool, device=dev),
+                               L, P1)
+            ms = cuda_time_ms(lambda: launch(*ops, L), reps=5)
+            b, _ = bound_ms(0, w["pairs"])
+            name = "h2o_nn" if key == "nn" else "h2o_nn_dvec"
+            print(f"{name} on the R step's own operands (F={F} P1={P1} P2={y.shape[1]} y_group={L}): {ms:.4f} ms; "
+                  f"cells with a valid point {w['cell_share']:.4f}; {w['pairs']:.6g} valid pairs (bound {b:.4f} "
+                  f"ms, issue floor {issue_floor_ms(w['pairs'], 7):.4f} ms), {w['searched']:.6g} searched by the "
+                  f"cell search; {F * P1 * y.shape[1]:.6g} all pairs", flush=True)
+            del ops
+    seen.clear()
     del db, sg, res, tgt, s_verts, r_verts, r_pose
     torch.cuda.empty_cache()
     return state, counts, step_s
-
-
-def r_all_pairs_route(state):
-    """The same model on a 2048-point batch (the repo default cloud), 2
-    steps: the all-pairs kernels run, #4 in the refined branch."""
-    import torch
-
-    from oakink2_tamf_tpu_torch.models import losses as LL
-    from oakink2_tamf_tpu_torch.parallel import train as PT
-
-    dev = torch.device("cuda")
-    mano, assets = _r_geometry(dev)
-    step = PT.make_r_train_step(mano, assets, LL.RefineLossConfig())
-    db, _ = _r_batch(TRAIN_BS, TRAIN_L, TRAIN_NOBJ, R_ALL_PAIRS_P, 12, mano, dev)
-    kernels = _r_kernel_objects()
-    torch.cuda.reset_peak_memory_stats()
-    _zero_counts(kernels)
-    times, losses = [], []
-    for _ in range(2):
-        t0 = time.perf_counter()
-        m = step(state, db)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        losses.append(float(m["loss"]))
-    counts = {n: k.launches for n, k in kernels.items()}
-    print(f"R all-pairs route ({R_ALL_PAIRS_P} points): steps {[round(t, 4) for t in times]} s; losses {losses}; "
-          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {counts}", flush=True)
-    require(all(v == v and abs(v) < float("inf") for v in losses), "R all-pairs: non-finite loss")
-    require(counts["h2o_nn_dvec"] == 2, f"R all-pairs: h2o_nn_dvec launched {counts['h2o_nn_dvec']} times")
-    require(counts["h2o_cull"] == 0 and counts["h2o_cull_dvec"] == 0, "R all-pairs: a culled kernel launched")
-    return counts
 
 
 def r_entry_point() -> None:
@@ -2732,7 +2852,8 @@ def main() -> int:
     for k in kernels:
         print("\n".join(ln for ln in k.ptxas_log.splitlines() if "Used" in ln or "spill" in ln))
     sass = {}
-    for k in (CS.KERNEL, CL.KERNEL, CL.CULL_KERNEL, CC.H2O_KERNEL, CU.KERNEL, CU.DVEC_KERNEL):  # the pair searches' hot loop
+    for k in (CS.KERNEL, CL.KERNEL, CL.CULL_KERNEL, CC.H2O_KERNEL, CU.KERNEL, CU.DVEC_KERNEL, NN.KERNEL,
+              NN.DVEC_KERNEL):  # the pair searches' hot loop
         st = sass[k.name] = sass_inner_loop(k)
         print(f"{k.name} SASS hot loop: {st['instructions']} instructions, {st['fast_path']} without the row "
               f"merge, {st['pairs']} pairs: {st['fast_path'] / max(st['pairs'], 1):.3f} per pair; "
@@ -2753,10 +2874,12 @@ def main() -> int:
     phase("R kernels")
     kstats.update(check_r_kernels())
     check_cull_edges()
+    check_nn_edges()
     phase("cluster kernels")
     kstats.update(check_cluster_kernels())
     check_topk_edges()
-    for name in ("dist_loss", "dist_loss_cull", "h2o_topk", "h2o_cull", "h2o_cull_dvec"):  # the redesigned searches
+    for name in ("dist_loss", "dist_loss_cull", "h2o_topk", "h2o_cull", "h2o_cull_dvec", "h2o_nn",
+                 "h2o_nn_dvec"):  # the redesigned searches
         st, o = sass[name], kstats[name]
         cells = name.startswith("h2o_")  # one search direction: 7 instructions per pair at least
         floor = issue_floor_ms(o["pairs"], 7 if cells else INSTR_PER_PAIR)
@@ -2767,6 +2890,9 @@ def main() -> int:
                      f"{o['kept_share']:.4f}, mask {o['mask_ms']:.4f} ms")
         elif "all_pairs_ms" in o:
             extra = f"; dist_loss on its operands {o['all_pairs_ms']:.4f} ms"
+        elif "cell_share" in o:
+            extra = (f"; {o['pairs']:.6g} valid pairs, {o['searched']:.6g} searched, cells with a valid point "
+                     f"{o['cell_share']:.4f}")
         print(f"{name}: {ptxas_registers(o['kernel'])} registers, {st['fast_path'] / max(st['pairs'], 1):.3f} SASS "
               f"instructions per pair, {o['ms']:.4f} ms at {o['shape']} (bound {o['bound_ms']:.4f} ms, issue "
               f"floor {floor:.4f} ms){extra}", flush=True)
@@ -2793,10 +2919,10 @@ def main() -> int:
     phase("gt_geom cache")
     gt_cache_path()
     phase("R training main path (cull route)")
-    r_state, r_counts, _ = r_train_main_path()
-    phase("R all-pairs route")
-    r_ap_counts = r_all_pairs_route(r_state)
-    del r_state
+    _, r_counts, _ = r_train_main_path()
+    torch.cuda.empty_cache()
+    phase("R training main path (all-pairs route)")
+    _, r_ap_counts, _ = r_train_main_path("all-pairs")
     torch.cuda.empty_cache()
     phase("R entry point")
     r_entry_point()

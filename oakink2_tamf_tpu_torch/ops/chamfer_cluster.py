@@ -359,16 +359,10 @@ def plain_h2o_topk(xs, y4, ctr, cidx, y_group: int):
             best_j.reshape(F, T * S_CELL)[:, :P1].to(torch.int32))
 
 
-def cell_flags(y4: torch.Tensor) -> torch.Tensor:
-    """[G, C] uint8: 1 where a 128-point cell of the prepared clouds y4
-    [G, P2, 4] holds a valid point (an invalid one sits at FAR), 0 past P2.
-    Kernel #10 skips the other cells: their points can never lower a row.
-    Derived from y4 itself, so the flags agree with the operand the kernel
-    reads; on the selection's operands they are `cell_stats(...)[3]`."""
-    G, P2, _ = y4.shape
-    C = _cdiv(P2, S_CELL)
-    valid = torch.nn.functional.pad(y4[..., 0] < FAR / 2, (0, C * S_CELL - P2), value=False)
-    return valid.reshape(G, C, S_CELL).any(dim=-1).to(torch.uint8)
+# [G, C] uint8 cell flags of prepared clouds (defined beside #1/#4, which
+# skip the same cells); on the selection's operands they are
+# `cell_stats(...)[3]`.
+cell_flags = NN.cell_flags
 
 
 def _check_cuda(named: dict, device) -> None:

@@ -6,18 +6,25 @@ Replaces oakink2_tamf_tpu/ops/chamfer_pallas.py `_nn_h2o_kernel` (:354;
 frame f of F and hand row i it returns min_j ||x_fi - y_gj||^2 over the
 frame's object cloud g = f // y_group, and the first j that reaches it.
 
-Kernel (csrc/h2o_nn.cu) design and bound: see the source. The work is
-8 flops per pair on the FP32 (non-tensor) pipes; at the serving shape
-(F = 10240 frames, 778 rows, 8192 points) that is ~6.5e10 pairs, about
-7.8 ms at the H100 SXM's published 67 TFLOP/s FP32 peak.
+Kernel (csrc/h2o_nn.cu) design and bound: see the source. It runs the cell
+search of csrc/h2o_cells_common.cuh over the 128-point cells of each cloud
+that hold a valid point (`cell_flags`, computed once per call from the
+prepared cloud): a cell of invalid points only can never lower a row, so
+the skip is exact, and a padded object slot's all-invalid cloud searches
+nothing. The work is 8 flops per (row, valid point) pair on the FP32
+(non-tensor) pipes; at the serving shape (F = 10240 frames, 778 rows, 2048
+points) that is ~1.6e10 pairs, about 1.9 ms at the H100 SXM's published
+67 TFLOP/s FP32 peak.
 
 Operands as the TPU wrapper prepares them (`_prep_operands`): every group is
 centred on its y-mean, which keeps the coordinates at scene scale; an
 invalid y never wins (it sits at 1e15 per coordinate, far above BIG = 1e30
-in squared distance), so an all-invalid cloud gives BIG, never inf.
+in squared distance), so an all-invalid cloud gives BIG, never inf. As on
+the TPU, x_valid is not an operand: padded frames are searched too.
 
 On a CUDA tensor `h2o_nn` launches the kernel or raises; on a CPU tensor it
-runs `plain`, which repeats the kernel's per-pair rounding in PyTorch.
+runs `plain`, the full search over every point, which repeats the kernel's
+per-pair rounding in PyTorch.
 
 `h2o_nn_dvec` (csrc/h2o_nn_dvec.cu, its own kernel and launch count)
 replaces `_nn_h2o_dvec_kernel` (:408; `_nn_h2o_dvec_forward`, pallas_call
@@ -37,6 +44,7 @@ from ._build import Kernel
 
 BIG = 1e30
 FAR = 1e15  # coordinate of an invalid y after centring
+CELL = 128  # points per cell of the kernels' search (csrc/h2o_cells_common.cuh CELL_PTS)
 _PLAIN_CHUNK_ELEMS = 1 << 25  # bound on F * P1 * chunk * 3 per plain step
 
 _P = ctypes.c_void_p
@@ -45,13 +53,13 @@ KERNEL = Kernel(
     "h2o_nn", "h2o_nn.cu",
     replaces="oakink2_tamf_tpu/ops/chamfer_pallas.py:354",
     symbol="h2o_nn_launch",
-    argtypes=[_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    argtypes=[_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 )
 DVEC_KERNEL = Kernel(
     "h2o_nn_dvec", "h2o_nn_dvec.cu",
     replaces="oakink2_tamf_tpu/ops/chamfer_pallas.py:408",
     symbol="h2o_nn_dvec_launch",
-    argtypes=[_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    argtypes=[_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 )
 
 
@@ -112,8 +120,21 @@ def nearest(xc: torch.Tensor, y4: torch.Tensor, y_group: int):
 
 
 def plain(x: torch.Tensor, y4: torch.Tensor, ctr: torch.Tensor, y_group: int):
-    """The kernel's function in plain PyTorch, on prepared operands."""
+    """The kernel's function in plain PyTorch, on prepared operands: the
+    full search over every point, with no cell skipped."""
     return nearest(centred_x(x, ctr, y_group), y4, y_group)
+
+
+def cell_flags(y4: torch.Tensor) -> torch.Tensor:
+    """[G, C] uint8: 1 where a 128-point cell of the prepared clouds y4
+    [G, P2, 4] holds a valid point (an invalid one sits at FAR), 0 past P2.
+    The cell searches (#1, #4, #10) skip the other cells: their points can
+    never lower a row. Derived from y4 itself, so the flags agree with the
+    operand the kernel reads."""
+    G, P2, _ = y4.shape
+    C = -(-P2 // CELL)
+    valid = torch.nn.functional.pad(y4[..., 0] < FAR / 2, (0, C * CELL - P2), value=False)
+    return valid.reshape(G, C, CELL).any(dim=-1).to(torch.uint8)
 
 
 def _check_operands(x: torch.Tensor, y4: torch.Tensor, ctr: torch.Tensor, y_group: int) -> None:
@@ -135,11 +156,12 @@ def launch(x: torch.Tensor, y4: torch.Tensor, ctr: torch.Tensor, y_group: int):
     F, P1, _ = x.shape
     P2 = y4.shape[1]
     _check_operands(x, y4, ctr, y_group)
+    live = cell_flags(y4)
     d = torch.empty((F, P1), dtype=torch.float32, device=x.device)
     idx = torch.empty((F, P1), dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
         KERNEL.launch(
-            x.data_ptr(), y4.data_ptr(), ctr.data_ptr(), d.data_ptr(), idx.data_ptr(),
+            x.data_ptr(), y4.data_ptr(), ctr.data_ptr(), live.data_ptr(), d.data_ptr(), idx.data_ptr(),
             F, P1, P2, y_group, torch.cuda.current_stream().cuda_stream,
         )
     return d, idx
@@ -185,11 +207,12 @@ def launch_dvec(x: torch.Tensor, y4: torch.Tensor, ctr: torch.Tensor, y_group: i
     dvec [F, P1, 3])."""
     F, P1, _ = x.shape
     _check_operands(x, y4, ctr, y_group)
+    live = cell_flags(y4)
     d = torch.empty((F, P1), dtype=torch.float32, device=x.device)
     dvec = torch.empty((F, P1, 3), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         DVEC_KERNEL.launch(
-            x.data_ptr(), y4.data_ptr(), ctr.data_ptr(), d.data_ptr(), dvec.data_ptr(),
+            x.data_ptr(), y4.data_ptr(), ctr.data_ptr(), live.data_ptr(), d.data_ptr(), dvec.data_ptr(),
             F, P1, y4.shape[1], y_group, torch.cuda.current_stream().cuda_stream,
         )
     return d, dvec

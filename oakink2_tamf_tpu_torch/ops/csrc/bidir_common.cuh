@@ -32,7 +32,7 @@
 // A key is only ever lowered, so a stale read of it can only send a warp
 // into the merge needlessly, never skip one. The row keys start at
 // (BIG, 0): a pair below BIG takes the row, a row that finds none keeps
-// (BIG, 0), as h2o_row_scan's strict < from BIG does. Dead columns past P2
+// (BIG, 0), as the h2o searches' strict < from BIG does. Dead columns past P2
 // hold an invalid point (d ~ 3e30 > BIG): they win neither side.
 //
 // Shared memory of a block: rows, normals and keys for P1 rounded up to

@@ -3,9 +3,10 @@
 // row's minimum of ||x_i - y_j||^2 over the listed cells' points and the
 // first point reaching it, visiting the cells in list order with a strict <
 // and each cell's points in ascending order. h2o_topk.cu (#10) runs it over
-// a tile's K candidate cells; h2o_cull.cu (#2) and h2o_cull_dvec.cu (#3) run
-// it over the cells the cull mask keeps for a 128-row region, ascending
-// (h2o_cull_cells_block below).
+// a tile's K candidate cells; h2o_nn.cu (#1) and h2o_nn_dvec.cu (#4) run it
+// over every cell of the cloud that holds a valid point, h2o_cull.cu (#2) and
+// h2o_cull_dvec.cu (#3) over the cells the cull mask keeps for a 128-row
+// region, each list ascending (h2o_cells_block below).
 //
 // Every pair goes through h2o_common.cuh's h2o_pair_d2, so the values are
 // bit-identical to the other h2o kernels' on the pairs they share. A list
@@ -191,22 +192,28 @@ __device__ __forceinline__ void h2o_cells_search(
     }
 }
 
-// The culled search of one (frame f, 128-row region r) block, the body of
-// #2 (DVEC = false: the minimum only) and #3 (DVEC = true: the minimum and
-// dvec = x - y at its first point): h2o_cells_search over the cells of the
-// cloud whose tile the mask row mask[f, r, :] keeps, ascending. tile is a
-// multiple of CELL_PTS, so a cell lies in one tile, tile k * CELL_PTS / tile.
-// Warp 0 lists the kept cells' first points in dynamic shared memory
+// What a listed-cells block writes per row below P1: the minimum only (#2),
+// the minimum and its first point (#1), or the minimum and dvec = x - y at
+// its first point (#3, #4).
+enum CellsOut { CELLS_MIN, CELLS_INDEX, CELLS_DVEC };
+
+// The search of one (frame f, 128-row region r) block over the cells of the
+// cloud that keep(f, r, g, c) lists, ascending: the body of #1 and #4 (every
+// cell of cloud g holding a valid point, from the per-group cell flags) and
+// of #2 and #3 (the cells of the tiles the cull mask row mask[f, r, :]
+// keeps). Warp 0 lists the cells' first points in dynamic shared memory
 // (kept[], C = ceil(P2 / CELL_PTS) ints at most) before the search, so the
-// warp sets split the kept cells evenly and the walk has no skipped entries;
-// the list rank orders the cells as their index does, so the search's first
-// minimum is the first in ascending point order over the kept cells. A row
-// whose every cell is culled keeps (BIG, 0): #3 writes dvec = 0 there.
-template <bool DVEC>
-__device__ __forceinline__ void h2o_cull_cells_block(
+// warp sets split the listed cells evenly and the walk has no skipped
+// entries; the list rank orders the cells as their index does, so the
+// search's first minimum is the first in ascending point order over the
+// listed cells. A row with no listed cell (an all-invalid cloud, every cell
+// culled) keeps (BIG, 0): CELLS_DVEC writes dvec = 0 there. Only the output
+// pointers of OUT are read: i_out for CELLS_INDEX, dvec for CELLS_DVEC.
+template <CellsOut OUT, typename Keep>
+__device__ __forceinline__ void h2o_cells_block(
     const float* __restrict__ x, const float4* __restrict__ y, const float* __restrict__ ctr,
-    const int* __restrict__ mask, float* __restrict__ d_out, float* __restrict__ dvec,
-    int P1, int P2, int y_group, int R, int T, int tile) {
+    float* __restrict__ d_out, int* __restrict__ i_out, float* __restrict__ dvec,
+    int P1, int P2, int y_group, int R, Keep keep) {
     __shared__ CellsShared sh;
     __shared__ int n_kept;
     extern __shared__ int kept[];
@@ -215,43 +222,42 @@ __device__ __forceinline__ void h2o_cull_cells_block(
     const int r = (int)(blk - (long long)f * R);
     const int g = f / y_group;
     const int C = (P2 + CELL_PTS - 1) / CELL_PTS;
-    const int cells_per_tile = tile / CELL_PTS;
-    const int* m = mask + ((size_t)f * R + r) * T;
     const float4* yg = y + (size_t)g * P2;
     if (threadIdx.x < 32) {
         const int lane = threadIdx.x;
         int n = 0;
         for (int c0 = 0; c0 < C; c0 += 32) {
             const int c = c0 + lane;
-            const bool keep = c < C && m[c / cells_per_tile] != 0;
-            const unsigned b = __ballot_sync(0xffffffffu, keep);
-            if (keep) kept[n + __popc(b & ((1u << lane) - 1u))] = c * CELL_PTS;
+            const bool listed = c < C && keep(f, r, g, c);
+            const unsigned b = __ballot_sync(0xffffffffu, listed);
+            if (listed) kept[n + __popc(b & ((1u << lane) - 1u))] = c * CELL_PTS;
             n += __popc(b);
         }
         if (lane == 0) n_kept = n;
     }
     __syncthreads();
     const int row0 = r * CELL_PTS;
-    h2o_cells_search<DVEC>(
+    h2o_cells_search<OUT != CELLS_MIN>(
         sh, x, ctr, f, g, row0, P1, yg, P2, n_kept,
         [&](int k) { return kept[k]; },
         [&](int row, float d, int j) {
             const size_t o = (size_t)f * P1 + row;
-            if constexpr (DVEC) {
+            if constexpr (OUT == CELLS_DVEC) {
                 const float4 v = sh.xs[row - row0];
                 h2o_write_dvec(d_out, dvec, o, yg, d, j, v.x, v.y, v.z);
             } else {
                 d_out[o] = d;
+                if constexpr (OUT == CELLS_INDEX) i_out[o] = j;
             }
         });
 }
 
-// The dynamic shared memory of h2o_cull_cells_block's kernel for a cloud of
-// P2 points (its cell list). Above the 48 KB a launch may take without
-// asking (clouds of more than ~9500 cells) the kernel is allowed more here;
-// past the card's 227 KB the launch fails and the wrapper raises.
+// The dynamic shared memory of h2o_cells_block's kernel for a cloud of P2
+// points (its cell list). Above the 48 KB a launch may take without asking
+// (clouds of more than ~9500 cells) the kernel is allowed more here; past
+// the card's 227 KB the launch fails and the wrapper raises.
 template <typename Kernel>
-__host__ size_t h2o_cull_cells_smem(Kernel kernel, int P2) {
+__host__ size_t h2o_cells_smem(Kernel kernel, int P2) {
     const size_t smem = (size_t)((P2 + CELL_PTS - 1) / CELL_PTS) * sizeof(int);
     if (smem + sizeof(CellsShared) + sizeof(int) > 48 * 1024)
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

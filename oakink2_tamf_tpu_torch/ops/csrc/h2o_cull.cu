@@ -15,7 +15,7 @@
 // (the pinned distance's 6 and a minimum).
 //
 // Design: h2o_cells_common.cuh's cell search, shared with #3 and #10
-// (h2o_cull_cells_block): one block of CELLS_THREADS per (frame, region);
+// (h2o_cells_block): one block of CELLS_THREADS per (frame, region);
 // the region's kept tiles, listed as the 128-point cells they hold, are
 // split among 4 warp sets, each thread holding 4 rows (one broadcast
 // shared load feeds 4 pairs) and keeping a per-segment fminf. With the mask
@@ -32,7 +32,10 @@ h2o_cull_kernel(const float* __restrict__ x,     // [F, P1, 3]
                 const int* __restrict__ mask,    // [F, R, T] 1 = run the block
                 float* __restrict__ d_out,       // [F, P1]
                 int P1, int P2, int y_group, int R, int T, int tile) {
-    h2o_cull_cells_block<false>(x, y, ctr, mask, d_out, nullptr, P1, P2, y_group, R, T, tile);
+    const int cells_per_tile = tile / CELL_PTS;
+    h2o_cells_block<CELLS_MIN>(
+        x, y, ctr, d_out, nullptr, nullptr, P1, P2, y_group, R,
+        [&](int f, int r, int, int c) { return mask[((size_t)f * R + r) * T + c / cells_per_tile] != 0; });
 }
 
 extern "C" int h2o_cull_launch(const float* x, const float4* y, const float* ctr,
@@ -42,7 +45,7 @@ extern "C" int h2o_cull_launch(const float* x, const float4* y, const float* ctr
     if (F <= 0 || P1 <= 0) return 0;
     if (tile <= 0 || tile % CELL_PTS != 0) return (int)cudaErrorInvalidValue;
     const int R = (P1 + CELL_PTS - 1) / CELL_PTS;
-    const size_t smem = h2o_cull_cells_smem(h2o_cull_kernel, P2);
+    const size_t smem = h2o_cells_smem(h2o_cull_kernel, P2);
     h2o_cull_kernel<<<(unsigned)((long long)F * R), CELLS_THREADS, smem, stream>>>(
         x, y, ctr, mask, d_out, P1, P2, y_group, R, T, tile);
     return (int)cudaGetLastError();

@@ -14,7 +14,7 @@
 // Bound: floating-point work, 8 flops per (real row, point) pair of the
 // blocks the mask keeps; at least 7 instructions per pair issued.
 //
-// Design: #2's block (h2o_cull_cells_block in h2o_cells_common.cuh: one
+// Design: #2's block (h2o_cells_block in h2o_cells_common.cuh: one
 // block per frame x 128-row region, the kept 128-point cells listed
 // ascending and split among 4 warp sets, 4 rows per thread, per-segment
 // minima merged per row on (value, rank)), with the first point found
@@ -31,7 +31,10 @@ h2o_cull_dvec_kernel(const float* __restrict__ x,     // [F, P1, 3]
                      float* __restrict__ d_out,       // [F, P1]
                      float* __restrict__ dvec,        // [F, P1, 3]
                      int P1, int P2, int y_group, int R, int T, int tile) {
-    h2o_cull_cells_block<true>(x, y, ctr, mask, d_out, dvec, P1, P2, y_group, R, T, tile);
+    const int cells_per_tile = tile / CELL_PTS;
+    h2o_cells_block<CELLS_DVEC>(
+        x, y, ctr, d_out, nullptr, dvec, P1, P2, y_group, R,
+        [&](int f, int r, int, int c) { return mask[((size_t)f * R + r) * T + c / cells_per_tile] != 0; });
 }
 
 extern "C" int h2o_cull_dvec_launch(const float* x, const float4* y, const float* ctr,
@@ -41,7 +44,7 @@ extern "C" int h2o_cull_dvec_launch(const float* x, const float4* y, const float
     if (F <= 0 || P1 <= 0) return 0;
     if (tile <= 0 || tile % CELL_PTS != 0) return (int)cudaErrorInvalidValue;
     const int R = (P1 + CELL_PTS - 1) / CELL_PTS;
-    const size_t smem = h2o_cull_cells_smem(h2o_cull_dvec_kernel, P2);
+    const size_t smem = h2o_cells_smem(h2o_cull_dvec_kernel, P2);
     h2o_cull_dvec_kernel<<<(unsigned)((long long)F * R), CELLS_THREADS, smem, stream>>>(
         x, y, ctr, mask, d_out, dvec, P1, P2, y_group, R, T, tile);
     return (int)cudaGetLastError();
