@@ -6,7 +6,8 @@
 Phases (any failure exits non-zero and prints no result line):
 1. build the CUDA kernels from ops/csrc (one nvcc per source, in parallel),
    print ptxas' registers and spills, and the SASS hot loop of #1-#4, #6,
-   #8, #9 and #10 (instructions per pair, cuobjdump);
+   #8, #9 and #10 (instructions per pair, cuobjdump) and the scatter loop
+   of #7 and #13 (instructions per point);
 2. serving kernels: check each against its plain PyTorch version on the
    card at the serving path's shapes (10240 frames = 64 clouds x 160
    frames, 778 hand rows, 2048 / 8192 object points) with ragged y_valid,
@@ -24,7 +25,9 @@ Phases (any failure exits non-zero and prints no result line):
    x 4 object slots x 160 frames), its plain version on 1/8 of those
    frames (x 8; #6's and #8's outputs are held against it there), and
    torch.cdist with min/argmin both ways as the signed forward's library
-   yardstick; then #6 and #8 on tie scenes (exact duplicate points and rows
+   yardstick, a gather and index_add_ as #7's, and the distinct rows per 32
+   consecutive live points that #7's scatter meets; then #6 and #8 on tie
+   scenes (exact duplicate points and rows
    at the seams of their bidirectional search) at ragged P1 and P2, y_group
    1 and 8, with an all-invalid cloud and x_valid=False frames, against
    their plain versions; then the region-culled loss kernel (#9) on
@@ -34,7 +37,13 @@ Phases (any failure exits non-zero and prints no result line):
    and #8 on the same operands; #9 on the tie scenes at tiles 2048, 512
    and 640 under masks that drop blocks, and on a separated scene whose
    mask keeps well under all blocks (its run share printed), against its
-   plain version and #8;
+   plain version and #8; then #7 and #13 on contention scenes (every
+   point on one row, two rows on alternating lanes, all rows distinct,
+   pairs that cancel, zero cotangents and indices out of range, a padded
+   slot; 100, 2000 and 8192 points; #7 at grad_y False and True, y_group 1
+   and 2): gx against the plain versions within 1e-6 of the terms'
+   magnitudes per frame and every element within the float32 sum bound of
+   the float64 sum, #7's gy too, #13's gy equal;
 4. R kernels (#3 culled dvec, #4 all-pairs dvec, #5 h2o backward): check
    each against its plain version on 32 frames x 778 rows x 8192 points
    (ragged cloud, all-invalid cloud, x_valid=False frames; #5 in both
@@ -57,14 +66,16 @@ Phases (any failure exits non-zero and prints no result line):
    template permutation): each against its plain version; #10 against #1
    (equal on rows of certified tiles, never below; the overflowed-tile
    share is printed); #12 at k_tiles 0 against #6's o2h half; each timed
-   at 40960 frames x 778 x 8192 with the selection stage; #10 on a tie
+   at 40960 frames x 778 x 8192 with the selection stage (#13 with the
+   distinct rows per 32 live points its scatter meets); #10 on a tie
    scene with reversed candidate lists, an empty cell in each list, an
    all-invalid cloud and ids out of range, against its plain version;
    then #8's, #9's, #10's, #2's, #3's, #1's and #4's registers, SASS
    instructions per pair, times, bounds and issue floors side by side
    (#2/#3 at the shipped tile and at 2048, with the mask's kept share and
    ms; #1/#4 with their valid and searched pairs and the share of cells
-   with a valid point);
+   with a valid point); #7's and #13's registers, SASS instructions per
+   point, times, bounds, library times and rows per warp;
 6. small GPU-vs-CPU parity: the serving pipeline, a G train step on the
    three dist routes and an R train step on all three h2o routes (same
    weights, batch and noise, dropout 0): loss and gradients must agree;
@@ -76,7 +87,9 @@ Phases (any failure exits non-zero and prints no result line):
    dist_impl="fused_cull" (#9 once per step, #8 and #7 never), its split
    with the mask stage on its own line;
 8. the composed route: the same model and batch, 2 steps; the signed
-   forward and its backward kernel must launch;
+   forward and its backward kernel must launch; then a third step whose
+   #7 operands are kept, #7 timed on them with the distinct rows per 32
+   live points it meets there;
 9. the entry point: launch/train_g.main on config/synthetic_smoke.yml on
    the card (two short epochs), on the fused and the fused_cull routes;
 10. the gt_geom cache: train_g.main with train.data.cache_gt_geom (the
@@ -116,6 +129,7 @@ last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -504,29 +518,11 @@ def scatter_mass_close(a, b, mass, rtol: float = 1e-6) -> bool:
     return bool((d <= rtol * mass.flatten(1).norm(dim=1) + 1e-6).all())
 
 
-def h2o_gy_exact(x, y, idx, xr):
-    """The h2o backward's gy (y_group 1) summed in float64, with per element
-    the terms' absolute sum and count: (gy [F, P2, 3], mass [F, P2, 3],
-    n [F, P2, 1]). The plain version's formula, on float64 copies."""
-    import torch
-
-    F, P1, _ = x.shape
-    P2 = y.shape[1]
-    flat = (torch.arange(F, device=x.device)[:, None] * P2 + idx.long()).reshape(-1)
-    t = xr.double()[..., None] * (x.double() - y.double().reshape(-1, 3)[flat].reshape(F, P1, 3))
-    t = torch.where((xr != 0)[..., None], t, 0.0).reshape(-1, 3)
-    zeros = torch.zeros((F * P2, 3), dtype=torch.float64, device=x.device)
-    gy = zeros.clone().index_add_(0, flat, -t)
-    mass = zeros.index_add_(0, flat, t.abs())
-    n = torch.zeros(F * P2, dtype=torch.float64, device=x.device).index_add_(
-        0, flat, (xr != 0).reshape(-1).double())
-    return gy.reshape(F, P2, 3), mass.reshape(F, P2, 3), n.reshape(F, P2, 1)
-
-
 def gy_sum_bound_share(got, exact) -> float:
     """max over elements of |got - gy| / ((n + 2) u mass), u = 2^-24, with
-    (gy, mass, n) from h2o_gy_exact; at most 1 for any float32 sum of the n
-    terms, in any order, each a product of a difference (two roundings).
+    (gy, mass, n) one half of backward_exact; at most
+    1 for any float32 sum of the n terms, in any order, each a product of a
+    difference (two roundings).
     Atomic additions land in a run-dependent order, so the kernel's gy is
     held to the bound that every order obeys: a per-frame rtol fails on a
     frame whose rows all take one point and cancel (an all-invalid cloud).
@@ -551,14 +547,169 @@ def cancellation(exact) -> float:
 
 def o2h_mass(x, y, o2h_i, yc):
     """[F, P1, 3]: the scatter of |yc_j (y_j - x_{o2h_i[j]})| onto the rows
-    (one cloud per frame): the magnitude that #13's and #7's o2h-side
-    atomics sum."""
+    (one cloud per frame; an index outside [0, P1) adds nothing): the
+    magnitude that #13's and #7's o2h-side scatters sum."""
     import torch
 
     F, P1, _ = x.shape
-    flat = (torch.arange(F, device=x.device)[:, None] * P1 + o2h_i.long()).reshape(-1)
-    u = (yc[..., None] * (y - x.reshape(-1, 3)[flat].reshape(y.shape))).abs()
+    ok = (o2h_i >= 0) & (o2h_i < P1)
+    flat = (torch.arange(F, device=x.device)[:, None] * P1 + torch.where(ok, o2h_i, 0).long()).reshape(-1)
+    u = torch.where(ok[..., None], (yc[..., None] * (y - x.reshape(-1, 3)[flat].reshape(y.shape))).abs(), 0.0)
     return torch.zeros((F * P1, 3), device=x.device).index_add_(0, flat, u.reshape(-1, 3)).reshape(x.shape)
+
+
+def backward_exact(x, y, o2h_i, yc, h2o_i=None, xr=None, y_group: int = 1):
+    """The signed pair's backward summed in float64: gx [F, P1, 3] and gy
+    [F, P2, 3], each as (sum, the terms' absolute sum, their count),
+    gy_sum_bound_share's operand; the o2h side's terms (#13, #7) unless
+    o2h_i is None, the h2o side's (#5, #11, #7) with h2o_i. A term needs a
+    nonzero cotangent and an index in range; the kernels' formula on
+    float64 copies of their float32 operands."""
+    import torch
+
+    F, P1, _ = x.shape
+    P2 = y.shape[1]
+    dev = x.device
+    xd, yd = x.double(), y.double().repeat_interleave(y_group, 0)
+    gx = [torch.zeros((F * P1, 3), dtype=torch.float64, device=dev) for _ in range(3)]
+    gy = [torch.zeros((F * P2, 3), dtype=torch.float64, device=dev) for _ in range(3)]
+
+    def add(acc, at, t):
+        acc[0].index_add_(0, at, t)
+        acc[1].index_add_(0, at, t.abs())
+        acc[2].index_add_(0, at, torch.ones_like(t))
+
+    if o2h_i is not None:
+        f, j = torch.nonzero((yc != 0) & (o2h_i >= 0) & (o2h_i < P1), as_tuple=True)
+        i = o2h_i[f, j].long()
+        t = yc[f, j, None].double() * (yd[f, j] - xd[f, i])
+        add(gx, f * P1 + i, -t)
+        add(gy, f * P2 + j, t)
+    if h2o_i is not None:
+        f, i = torch.nonzero((xr != 0) & (h2o_i >= 0) & (h2o_i < P2), as_tuple=True)
+        j = h2o_i[f, i].long()
+        v = xr[f, i, None].double() * (xd[f, i] - yd[f, j])
+        add(gx, f * P1 + i, v)
+        add(gy, f * P2 + j, -v)
+    return (tuple(a.reshape(F, P1, 3) for a in gx), tuple(a.reshape(F, P2, 3) for a in gy))
+
+
+def contention_scene(P2: int, y_group: int, seed: int, P1: int = 778):
+    """Operands (x, y, o2h_i, yc, h2o_i, xr) on the card of an o2h scatter
+    (#7, #13) whose frames stress its parts: 0 every point on one row (and
+    every row of the h2o side on one point), 1 two rows on alternating
+    lanes, 2 all rows distinct within any 778 consecutive points, 3 pairs of
+    coincident points with cotangents c and -c on runs of 64 points per row
+    (each row's terms cancel exactly), 4 half the cotangents zero and
+    indices out of range with nonzero cotangents (-1, P1, P1 + 100, 2^30,
+    -2^31; on the h2o side -1 and 2^30), 5 a padded, all-invalid slot (every
+    cotangent zero); y has 6 / y_group clouds."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    F = 6
+    y = rng.normal(scale=0.05, size=(F // y_group, P2, 3))
+    x = rng.normal(scale=0.05, size=(F, P1, 3))
+    j = np.arange(P2)
+    o2h = np.stack([np.full(P2, 5), 100 + j % 2, (37 * j) % P1, (j // 64) % P1,
+                    np.sort(rng.integers(0, P1, P2)), (j // 16) % P1])
+    yc = rng.normal(size=(F, P2))
+    half = P2 // 2
+    y[3 // y_group, 1 : 2 * half : 2] = y[3 // y_group, 0 : 2 * half : 2]
+    yc[3, 1 : 2 * half : 2] = -yc[3, 0 : 2 * half : 2]
+    yc[4, rng.random(P2) < 0.5] = 0.0
+    bad = rng.choice(P2, 5, replace=False)
+    o2h[4, bad] = (-1, P1, P1 + 100, 2**30, -(2**31))
+    yc[4, bad] = 1.0 + rng.random(5)
+    yc[5] = 0.0
+    h2o = rng.integers(0, P2, (F, P1))
+    h2o[0] = 7
+    xr = rng.normal(size=(F, P1))
+    xr[:, ::7] = 0.0
+    h2o[4, [3, 10]] = (-1, 2**30)
+    xr[4, [3, 10]] = 1.5
+    f32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda()  # noqa: E731
+    i32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).cuda()  # noqa: E731
+    return f32(x), f32(y), i32(o2h), f32(yc), i32(h2o), f32(xr)
+
+
+def check_scatter_contention() -> dict[str, float]:
+    """#7 and #13 on contention_scene at 100, 2000 and 8192 points (ragged
+    and empty warp chunks, and the main paths' 8192), #7 at grad_y False
+    and True, y_group 1 and 2, #13 at grad_y False and True: against their
+    plain versions on the card, gx per frame within 1e-6 of its terms'
+    magnitudes (scatter_mass_close: for #7 o2h_mass plus the h2o side's)
+    and, with #7's gy, every element of both within the float32 sum bound
+    of the float64 sum (gy_sum_bound_share <= 1); #13's gy equal. Returns
+    the worst share per kernel."""
+    import torch
+
+    from oakink2_tamf_tpu_torch.ops import chamfer_cluster as CC
+    from oakink2_tamf_tpu_torch.ops import chamfer_signed as CS
+
+    worst = {"nn_signed_bwd": 0.0, "o2h_topk_bwd": 0.0}
+    for P2 in (100, 2000, 8192):
+        for grad_y, y_group in ((False, 1), (True, 1), (False, 2)):
+            x, y, o2h, yc, h2o, xr = contention_scene(P2, y_group, seed=P2)
+            gx, gy = CS.backward_launch(x, y, h2o, o2h, xr, yc, grad_y, y_group)
+            px, py = CS.backward_plain(x, y, h2o, o2h, xr, yc, grad_y, y_group)
+            ex, ey = backward_exact(x, y, o2h, yc, h2o, xr, y_group)
+            where = f"nn_signed_bwd on the contention scene (P2 {P2}, grad_y {grad_y}, y_group {y_group})"
+            require(scatter_mass_close(gx, px, ex[1]), f"{where}: gx differs from plain beyond 1e-6 of the magnitudes")
+            pairs = [(gx, px, ex)] + ([(gy, py, ey)] if grad_y else [])
+            share = max(gy_sum_bound_share(a, e) for g, p, e in pairs for a in (g, p))
+            require(share <= 1.0, f"{where}: {share} of the float32 sum bound")
+            worst["nn_signed_bwd"] = max(worst["nn_signed_bwd"], share)
+        x, y, o2h, yc, _, _ = contention_scene(P2, 1, seed=P2 + 1)
+        ex, _ = backward_exact(x, y, o2h, yc)
+        mass = o2h_mass(x, y, o2h, yc)
+        for grad_y in (False, True):
+            gx, gy = CC.launch_o2h_backward(x, y, o2h, yc, grad_y)
+            px, py = CC.plain_o2h_backward(x, y, o2h, yc, grad_y)
+            where = f"o2h_topk_bwd on the contention scene (P2 {P2}, grad_y {grad_y})"
+            require(scatter_mass_close(gx, px, mass), f"{where}: gx differs from plain beyond 1e-6 of the magnitudes")
+            share = max(gy_sum_bound_share(gx, ex), gy_sum_bound_share(px, ex))
+            require(share <= 1.0, f"{where}: {share} of the float32 sum bound")
+            require(not grad_y or torch.equal(gy, py), f"{where}: gy differs from plain")
+            worst["o2h_topk_bwd"] = max(worst["o2h_topk_bwd"], share)
+    torch.cuda.synchronize()
+    print(f"o2h scatter contention scenes (one row, alternating rows, distinct rows, cancelling pairs, zero "
+          f"cotangents and indices out of range, a padded slot; 100 / 2000 / 8192 points): nn_signed_bwd "
+          f"(grad_y False/True, y_group 1/2) within {worst['nn_signed_bwd']:.4g} and o2h_topk_bwd within "
+          f"{worst['o2h_topk_bwd']:.4g} of the float32 sum bound, gx within 1e-6 of the magnitudes per frame, "
+          f"#13's gy equal", flush=True)
+    return worst
+
+
+def rows_per_warp(o2h_i, yc, chunk: int = 2048) -> float:
+    """What an o2h scatter meets (#7, #13): the mean number of distinct rows
+    i* per 32 consecutive live points of a frame (live: a nonzero cotangent
+    and an index in [0, P1)); P1 = 778."""
+    import torch
+
+    F, P2 = o2h_i.shape
+    n_groups = -(-P2 // 32)
+    rows = groups = 0
+    for a in range(0, F, chunk):
+        oi, c = o2h_i[a : a + chunk].long(), yc[a : a + chunk]
+        live = (c != 0) & (oi >= 0) & (oi < 778)
+        g = (torch.arange(oi.shape[0], device=oi.device)[:, None] * n_groups + (live.cumsum(1) - 1) // 32)[live]
+        rows += torch.unique(g * 778 + oi[live]).numel()
+        groups += torch.unique(g).numel()
+    return rows / max(groups, 1)
+
+
+def scatter_sass(kernel) -> dict:
+    """The hot loop of an o2h scatter's SASS (#7, #13): sass_inner_loop on
+    the grad_y=False kernel's loop that holds the warp votes; its FMULs are
+    the terms' products, 3 per point, so per point = instructions x 3 /
+    FMULs."""
+    st = sass_inner_loop(kernel, function="ILb0E", with_ops=("VOTE", "VOTEU", "MATCH"))
+    if not st["pairs"]:  # a build without the warp votes (an earlier design): its loop of products
+        st = sass_inner_loop(kernel, function="ILb0E")
+    pts = max(st["pairs"], 1) / 3
+    return dict(st, per_point=st["instructions"] / pts, fast_per_point=st["fast_path"] / pts)
 
 
 def training_scene(G: int, L: int, seed: int, P2: int = TRAIN_P, P1: int = 778):
@@ -691,12 +842,16 @@ def check_training_kernels() -> dict[str, dict]:
     xr = torch.randn(F, P1, device="cuda")
     yc = torch.randn(F, P2, device="cuda")
     b7, by7 = bound_ms(x.numel() * 4 + y.numel() * 4 + F * P1 * 8 + F * P2 * 8 + F * P1 * 12, 0)
+    rpw = rows_per_warp(o2h_i, yc)
     out["nn_signed_bwd"] = dict(
-        kernel=CS.BWD_KERNEL, max_abs_err=err7, shape=[F, P1, P2],
+        kernel=CS.BWD_KERNEL, max_abs_err=err7, shape=[F, P1, P2], rows_per_warp=rpw,
         ms=cuda_time_ms(lambda: CS.backward_launch(x, y, h2o_i, o2h_i, xr, yc, False, L), reps=10),
         plain_ms=cuda_time_ms(lambda: CS.backward_plain(x, y, h2o_i, o2h_i, xr, yc, False, L), reps=1, warmup=0),
-        library_ms=None, bound_ms=b7, bound_by=by7,
+        library_ms=cuda_time_ms(lambda: library_nn_signed_bwd(x, y, h2o_i, o2h_i, xr, yc, L), reps=1),
+        bound_ms=b7, bound_by=by7,
     )
+    print(f"nn_signed_bwd F={F} P1={P1} P2={P2} y_group={L}: distinct rows per 32 consecutive live points "
+          f"{rpw:.4f}", flush=True)
     del h2o_i, o2h_i, xr, yc
     torch.cuda.empty_cache()
     lops = CL.prepare(x, n, y, og, hg, vw, None, xv, L)
@@ -736,7 +891,21 @@ def check_training_kernels() -> dict[str, dict]:
     return out
 
 
-def sass_inner_loop(kernel) -> dict:
+def library_nn_signed_bwd(x, y, h2o_i, o2h_i, xr, yc, y_group: int):
+    """#7's yardstick (y_group clouds): the gather of each row's point times
+    xr (library_gather), then the gather of each point's row times yc,
+    index_add_-ed into gx."""
+    import torch
+
+    F, P1, _ = x.shape
+    G, P2, _ = y.shape
+    flat = (torch.arange(F, device=x.device)[:, None] * P1 + o2h_i.long()).reshape(-1)
+    x_at = x.reshape(-1, 3)[flat].reshape(G, y_group, P2, 3)
+    u = yc[..., None] * (y[:, None] - x_at).reshape(F, P2, 3)
+    return library_gather(x, y, h2o_i, xr, y_group).reshape(-1, 3).index_add_(0, flat, -u.reshape(-1, 3))
+
+
+def sass_inner_loop(kernel, function: str = "", with_ops: tuple = ()) -> dict:
     """The hot loop of a built kernel's SASS (cuobjdump -sass on its
     library): of the innermost loops (backward branches) that hold FMULs,
     the one with the most; an FMUL is one pinned pair distance
@@ -744,7 +913,8 @@ def sass_inner_loop(kernel) -> dict:
     Returns the body's instruction count, the count without the blocks
     that a forward branch skips around a shared atomic (the row merge,
     which runs only when a vote asks for it), the pairs and the opcode
-    counts of the body."""
+    counts of the body. `function` keeps the functions whose mangled name
+    holds it, `with_ops` the loops that hold one of those opcodes."""
     import collections
     import re
     import shutil
@@ -760,8 +930,11 @@ def sass_inner_loop(kernel) -> dict:
     def opcode(op):
         return (op.split()[1] if op.startswith("@") else op.split()[0]).split(".")[0]
 
-    insts, labels, best = [], {}, None
+    insts, labels, best, name = [], {}, None, ""
     for ln in text.splitlines() + ["Function : end"]:
+        if "Function :" in ln and function not in name:  # a function not asked for
+            insts, labels, name = [], {}, ln.split("Function :", 1)[1].strip()
+            continue
         if "Function :" in ln:  # a new function: score the previous one's loops
             addr = {a: k for k, (a, _) in enumerate(insts)}
             loops = []
@@ -771,7 +944,7 @@ def sass_inner_loop(kernel) -> dict:
                     continue
                 body = insts[tgt : k + 1]
                 ops = collections.Counter(opcode(o) for _, o in body)
-                if not ops["FMUL"]:
+                if not ops["FMUL"] or (with_ops and not any(ops[o] for o in with_ops)):
                     continue
                 skipped = set()
                 for b, (_, o) in enumerate(body):  # forward branches around an atomic
@@ -786,7 +959,7 @@ def sass_inner_loop(kernel) -> dict:
                     continue
                 if best is None or st["pairs"] > best["pairs"]:
                     best = st
-            insts, labels = [], {}
+            insts, labels, name = [], {}, ln.split("Function :", 1)[1].strip()
             continue
         m = re.match(r"\s*(\.L_x_\d+):", ln)
         if m:
@@ -1329,7 +1502,8 @@ def train_main_path(dist_impl: str = "auto", state=None, db=None):
 def composed_route(state, db):
     """The same model and batch on dist_impl="composed", 2 steps: the
     signed forward runs on both sides, its backward kernel on the
-    predicted side."""
+    predicted side. Then a third step, untimed, keeps #7's operands, and
+    #7 is timed on them (the rows per warp its scatter meets there)."""
     import torch
 
     from oakink2_tamf_tpu_torch.core import diffusion as D
@@ -1363,7 +1537,52 @@ def composed_route(state, db):
     require(counts["nn_signed"] == 4, f"composed: nn_signed launched {counts['nn_signed']} times in 2 steps")
     require(counts["nn_signed_bwd"] == 2, f"composed: nn_signed_bwd launched {counts['nn_signed_bwd']} times")
     require(counts["dist_loss"] == 0, "composed: the fused kernel launched")
+    with kept_arguments(CS, "backward_launch") as kept:  # one more step, untimed: #7's operands
+        step(state, db, generator=gen)
+    args = kept[-1]  # (x, y, h2o_i, o2h_i, xr, yc, grad_y, y_group)
+    rpw = rows_per_warp(args[3], args[5])
+    ms = cuda_time_ms(lambda: CS.backward_launch(*args), reps=10)
+    print(f"nn_signed_bwd on the composed step's own operands (F={args[0].shape[0]} P2={args[1].shape[1]} "
+          f"y_group={args[7]}, {int((args[5] != 0).sum())} live points): {ms:.4f} ms; distinct rows per 32 live "
+          f"points {rpw:.4f}", flush=True)
     return counts
+
+
+@contextlib.contextmanager
+def kept_arguments(module, name: str):
+    """with kept_arguments(module, name) as kept: calls of module.name made
+    inside the block (through the module's global, as its callers make
+    them) keep their arguments in `kept`, in order."""
+    fn, kept = getattr(module, name), []
+
+    def keep(*args):
+        kept.append(args)
+        return fn(*args)
+
+    setattr(module, name, keep)
+    try:
+        yield kept
+    finally:
+        setattr(module, name, fn)
+
+
+def composed_bwd_operands():
+    """Kernel #7's operands in one composed G step at full width (arch_mdm_l,
+    the G main path's batch and seeds): (x, y, h2o_i, o2h_i, xr, yc,
+    grad_y, y_group)."""
+    import torch
+
+    from oakink2_tamf_tpu_torch.models.clip_text import FrozenClipText
+    from oakink2_tamf_tpu_torch.models.mdm_g import MDMConfig
+    from oakink2_tamf_tpu_torch.ops import chamfer_signed as CS
+
+    dev = torch.device("cuda")
+    db = _train_batch(TRAIN_BS, TRAIN_L, TRAIN_NOBJ, TRAIN_P, seed=11, clip=FrozenClipText(device=dev), device=dev)
+    state, step, _ = _g_training(dev, MDMConfig.arch_mdm_l(), "composed")
+    with kept_arguments(CS, "backward_launch") as kept:
+        step(state, db, generator=torch.Generator(device=dev).manual_seed(1))
+    torch.cuda.synchronize()
+    return kept[-1]
 
 
 def entry_point(dist_impl: str = "auto") -> None:
@@ -1586,7 +1805,7 @@ def check_r_kernels() -> dict[str, dict]:
         require(torch.equal(gx, px), f"h2o_nn_bwd gx (grad_y={grad_y}) differs from the plain version")
         if grad_y:
             # atomics sum in a run-dependent order: both within the float32 sum bound
-            ex = h2o_gy_exact(x, yy, idx, xr)
+            ex = backward_exact(x, yy, None, None, idx, xr)[1]
             share5 = max(gy_sum_bound_share(gy, ex), gy_sum_bound_share(py, ex))
             require(share5 <= 1.0, f"h2o_nn_bwd gy vs plain: {(gy - py).abs().max().item()}, "
                     f"{share5} of the float32 sum bound")
@@ -1663,7 +1882,7 @@ def check_r_kernels() -> dict[str, dict]:
     b5, by5 = bound_ms(x.numel() * 4 + F * P1 * 8 + distinct * 12 + F * P1 * 12 + F * P2 * 12, 0)
     gx, gy = HB.launch(x, yy, idx, xr, True, 1)
     px, py = HB.plain(x, yy, idx, xr, True, 1)
-    ex = h2o_gy_exact(x, yy, idx, xr)
+    ex = backward_exact(x, yy, None, None, idx, xr)[1]
     share5 = max(gy_sum_bound_share(gy, ex), gy_sum_bound_share(py, ex))
     require(torch.equal(gx, px) and share5 <= 1.0,
             f"h2o_nn_bwd differs from the plain version at F={F} P2={P2}: gy {(gy - py).abs().max().item()}, "
@@ -2389,7 +2608,7 @@ def check_cluster_kernels() -> dict[str, dict]:
     xrg = torch.randn(xg.shape[:2], device="cuda")
     gx, gy = CC.h2o_topk_backward(xg, yg, ig, xrg, True, 1)
     px, py = HB.plain(xg, yg, ig, xrg, True, 1)
-    ex = h2o_gy_exact(xg, yg, ig, xrg)
+    ex = backward_exact(xg, yg, None, None, ig, xrg)[1]
     share11 = max(gy_sum_bound_share(gy, ex), gy_sum_bound_share(py, ex))
     require(torch.equal(gx, px) and share11 <= 1.0,
             f"h2o_topk_bwd (grad_y) differs from its plain version: gy {(gy - py).abs().max().item()}, "
@@ -2499,8 +2718,11 @@ def check_cluster_kernels() -> dict[str, dict]:
     n_live = int(live.sum())
     del srt, live
     b13, by13 = bound_ms(F * P2 * 4 + n_live * 16 + rows * 12 + F * P1 * 12, 0)
+    rpw = rows_per_warp(o2h_i, ycot)
+    print(f"o2h_topk_bwd F={F} P1={P1} P2={P2}: {n_live} live points; distinct rows per 32 consecutive live "
+          f"points {rpw:.4f}", flush=True)
     out["o2h_topk_bwd"] = dict(
-        kernel=CC.O2H_BWD_KERNEL, max_abs_err=err13, shape=[F, P1, P2],
+        kernel=CC.O2H_BWD_KERNEL, max_abs_err=err13, shape=[F, P1, P2], rows_per_warp=rpw,
         ms=cuda_time_ms(lambda: CC.launch_o2h_backward(x, yF, o2h_i, ycot, False), reps=5),
         plain_ms=cuda_time_ms(lambda: CC.plain_o2h_backward(x, yF, o2h_i, ycot, False), reps=1),
         library_ms=cuda_time_ms(lambda: library_o2h_bwd(x, yF, o2h_i, ycot), reps=1),
@@ -2858,6 +3080,11 @@ def main() -> int:
         print(f"{k.name} SASS hot loop: {st['instructions']} instructions, {st['fast_path']} without the row "
               f"merge, {st['pairs']} pairs: {st['fast_path'] / max(st['pairs'], 1):.3f} per pair; "
               f"{st['opcodes']}", flush=True)
+    for k in (CS.BWD_KERNEL, CC.O2H_BWD_KERNEL):  # the o2h scatter's loop (grad_y=False)
+        st = sass[k.name] = scatter_sass(k)
+        print(f"{k.name} SASS scatter loop: {st['instructions']} instructions ({st['fast_path']} outside the "
+              f"blocks around the shared atomics), {st['pairs']} FMULs: {st['per_point']:.3f} per point "
+              f"({st['fast_per_point']:.3f}); {st['opcodes']}", flush=True)
 
     def phase(label):
         print(f"--- {label} (at {time.perf_counter() - t_start:.1f} s)", flush=True)
@@ -2868,6 +3095,8 @@ def main() -> int:
     kstats.update(check_training_kernels())
     phase("signed tie and edge cases")
     check_signed_edges()
+    phase("o2h scatter contention scenes")
+    check_scatter_contention()
     phase("fused_cull kernel")
     kstats.update(check_cull_loss_kernel())
     check_cull_loss_edges()
@@ -2896,6 +3125,13 @@ def main() -> int:
         print(f"{name}: {ptxas_registers(o['kernel'])} registers, {st['fast_path'] / max(st['pairs'], 1):.3f} SASS "
               f"instructions per pair, {o['ms']:.4f} ms at {o['shape']} (bound {o['bound_ms']:.4f} ms, issue "
               f"floor {floor:.4f} ms){extra}", flush=True)
+    for name in ("nn_signed_bwd", "o2h_topk_bwd"):  # the redesigned scatters
+        st, o = sass[name], kstats[name]
+        print(f"{name}: {ptxas_registers(o['kernel'])} registers, {st['per_point']:.3f} SASS instructions per "
+              f"point in the scatter loop ({st['fast_per_point']:.3f} outside the atomics' blocks), {o['ms']:.4f} ms "
+              f"at {o['shape']} (bound {o['bound_ms']:.4f} ms, library {o['library_ms']:.4f} ms); distinct rows "
+              f"per 32 live points {o['rows_per_warp']:.4f}",
+              flush=True)
     phase("small pipeline parity")
     small_parity()
     phase("small train-step parity")

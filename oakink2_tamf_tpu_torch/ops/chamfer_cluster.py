@@ -44,7 +44,10 @@ as XLA runs them there, on the CPU and the GPU alike):
        each object point's min over its cell's candidate tiles, the first
        row reaching it and the sign numerator;
    #13 `o2h_topk_bwd` (csrc/o2h_topk_bwd.cu) replaces
-       `_o2h_topk_bwd_kernel(_nogy)` (:944 / :981).
+       `_o2h_topk_bwd_kernel(_nogy)` (:944 / :981): the warp-aggregated
+       scatter of csrc/o2h_scatter_common.cuh, shared with #7's o2h side
+       (a warp adds to a hand row once per run of points on that row);
+       bytes-bound, ~1.6 ms at the R training shape.
 
 Candidate order decides the index on exact distance ties across cells
 (strict < in candidate order, ascending within a cell), and so which point
@@ -511,11 +514,14 @@ def h2o_topk_backward(x, y, idx, xr, grad_y: bool = True, y_group: int = 1):
 def plain_o2h_backward(x, y, o2h_i, yc, grad_y: bool):
     """Kernel #13's function in plain PyTorch: gx_{i*} -= u_j summed over
     the points, gy_j = u_j (grad_y), u_j = yc_j (y_j - x_{o2h_i[j]}); a zero
-    cotangent contributes nothing. One cloud per frame."""
+    cotangent or an index outside [0, P1) contributes nothing (u_j = 0).
+    One cloud per frame."""
     F, P1, _ = x.shape
-    u = yc[..., None] * (y - CS._rows_at(x, o2h_i))
-    u = torch.where((yc != 0)[..., None], u, 0.0)
-    flat = (torch.arange(F, device=x.device)[:, None] * P1 + o2h_i.long()).reshape(-1)
+    ok = (o2h_i >= 0) & (o2h_i < P1)
+    at = torch.where(ok, o2h_i, 0)
+    u = yc[..., None] * (y - CS._rows_at(x, at))
+    u = torch.where((ok & (yc != 0))[..., None], u, 0.0)
+    flat = (torch.arange(F, device=x.device)[:, None] * P1 + at.long()).reshape(-1)
     gx = torch.zeros((F * P1, 3), dtype=x.dtype, device=x.device).index_add_(0, flat, -u.reshape(-1, 3))
     return gx.reshape(F, P1, 3), (u if grad_y else None)
 

@@ -28,7 +28,11 @@ is pair work, 8 flops per pair counted once (at the G training shape,
 40960 frames x 778 rows x 8192 points, ~31 ms); the backward is bytes
 (each input once, gx once: ~1.1 ms there). The forward is a single-pass
 bidirectional search (csrc/bidir_common.cuh): each pair's distance is
-computed once and feeds both directions. Designs: see the sources.
+computed once and feeds both directions. The backward's o2h side is the
+warp-aggregated scatter of csrc/o2h_scatter_common.cuh, shared with
+chamfer_cluster's #13: a warp adds to a hand row once per run of points
+on that row (a spatially sorted cloud's consecutive points share their
+nearest row), not once per point. Designs: see the sources.
 
 On a CUDA tensor the wrappers launch the kernel or raise; on a CPU tensor
 they run the plain version, which repeats the forward kernel's per-pair
@@ -176,22 +180,26 @@ def nn_signed(x: torch.Tensor, y: torch.Tensor, x_normals: torch.Tensor | None =
 
 
 def backward_plain(x, y, h2o_i, o2h_i, xr, yc, grad_y: bool, y_group: int):
-    """The backward kernel's function in plain PyTorch: (gx, gy or None)."""
+    """The backward kernel's function in plain PyTorch: (gx, gy or None).
+    As in the kernel, an index outside its range ([0, P1) for o2h_i, [0, P2)
+    for h2o_i) contributes nothing."""
     F, P1, _ = x.shape
     G, P2, _ = y.shape
     frames = torch.arange(F, device=x.device)
     groups = frames // y_group
-    x_at = x.reshape(F * P1, 3)[(frames[:, None] * P1 + o2h_i.long()).reshape(-1)].reshape(F, P2, 3)
+    ok_o, ok_h = (o2h_i >= 0) & (o2h_i < P1), (h2o_i >= 0) & (h2o_i < P2)
+    o_at = (frames[:, None] * P1 + torch.where(ok_o, o2h_i, 0).long()).reshape(-1)
+    h_at = (groups[:, None] * P2 + torch.where(ok_h, h2o_i, 0).long()).reshape(-1)
+    x_at = x.reshape(F * P1, 3)[o_at].reshape(F, P2, 3)
     u = yc[..., None] * (y.reshape(G, 1, P2, 3) - x_at.reshape(G, y_group, P2, 3)).reshape(F, P2, 3)
-    y_at = y.reshape(G * P2, 3)[(groups[:, None] * P2 + h2o_i.long()).reshape(-1)].reshape(F, P1, 3)
-    v = xr[..., None] * (x - y_at)
-    gx = v.reshape(F * P1, 3).index_add(
-        0, (frames[:, None] * P1 + o2h_i.long()).reshape(-1), -u.reshape(-1, 3)
-    ).reshape(F, P1, 3)
+    u = torch.where(ok_o[..., None], u, 0.0)
+    y_at = y.reshape(G * P2, 3)[h_at].reshape(F, P1, 3)
+    v = torch.where(ok_h[..., None], xr[..., None] * (x - y_at), 0.0)
+    gx = v.reshape(F * P1, 3).index_add(0, o_at, -u.reshape(-1, 3)).reshape(F, P1, 3)
     if not grad_y:
         return gx, None
     gy = u.reshape(F * P2, 3).index_add(
-        0, (frames[:, None] * P2 + h2o_i.long()).reshape(-1), -v.reshape(-1, 3)
+        0, (frames[:, None] * P2 + torch.where(ok_h, h2o_i, 0).long()).reshape(-1), -v.reshape(-1, 3)
     ).reshape(F, P2, 3)
     return gx, gy
 
