@@ -6,7 +6,7 @@
 Phases (any failure exits non-zero and prints no result line):
 1. build the CUDA kernels from ops/csrc (one nvcc per source, in parallel),
    print ptxas' registers and spills, and the SASS hot loop of #1-#4, #6,
-   #8, #9 and #10 (instructions per pair, cuobjdump) and the scatter loop
+   #8, #9, #10 and #12 (instructions per pair, cuobjdump) and the scatter loop
    of #7 and #13 (instructions per point);
 2. serving kernels: check each against its plain PyTorch version on the
    card at the serving path's shapes (10240 frames = 64 clouds x 160
@@ -70,11 +70,16 @@ Phases (any failure exits non-zero and prints no result line):
    distinct rows per 32 live points its scatter meets); #10 on a tie
    scene with reversed candidate lists, an empty cell in each list, an
    all-invalid cloud and ids out of range, against its plain version;
-   then #8's, #9's, #10's, #2's, #3's, #1's and #4's registers, SASS
+   #12 on the tie scenes of tests/test_torch_o2h_cells.py (rows copied
+   within a segment, across segments and tiles, an all-invalid cell and
+   frame, every tile listed and 4 reversed ones, at P1 x P2 778 x 1000
+   and 300 x 700, then ids out of range)
+   against that test's numpy reference and its plain version; then #8's,
+   #9's, #10's, #2's, #3's, #1's, #4's and #12's registers, SASS
    instructions per pair, times, bounds and issue floors side by side
    (#2/#3 at the shipped tile and at 2048, with the mask's kept share and
-   ms; #1/#4 with their valid and searched pairs and the share of cells
-   with a valid point); #7's and #13's registers, SASS instructions per
+   ms; #1/#4/#12 with their valid and searched pairs and the share of
+   cells with a valid point); #7's and #13's registers, SASS instructions per
    point, times, bounds, library times and rows per warp;
 6. small GPU-vs-CPU parity: the serving pipeline, a G train step on the
    three dist routes and an R train step on all three h2o routes (same
@@ -2693,12 +2698,22 @@ def check_cluster_kernels() -> dict[str, dict]:
         require(torch.equal(a[sl], b), f"o2h_topk {nm} differs from its plain version at F={part[0]} P2={P2}")
     del want
     b12, by12 = bound_ms(live_f * (P1 * 24 + C * T * 4) + n_valid * 16 + F * P2 * 12, float(n_valid * P1))
-    print(f"o2h_topk bound: {n_valid * P1:.6g} pairs, {n_valid} valid points on {live_f} of {F} frames",
-          flush=True)
+    # what the kernel searches: the 128 points of each cell with a valid
+    # point (it skips the others) against the rows of every listed tile, the
+    # last tile's rounded up to a 32-row segment (o2h_topk.cu's O2H_SEG)
+    live12 = CC.cell_flags(y4F)
+    walked = sum(min(CC.S_CELL, -(-(P1 - CC.S_CELL * t) // 32) * 32) for t in range(T))
+    searched12 = float(live12.sum()) * CC.S_CELL * walked
+    cell_share12 = float(live12.float().mean())
+    del live12
+    print(f"o2h_topk bound: {n_valid * P1:.6g} pairs, {n_valid} valid points on {live_f} of {F} frames; the "
+          f"kernel searches {searched12:.6g} pairs (every cell: {F * C * CC.S_CELL * walked:.6g}), cells with a "
+          f"valid point {cell_share12:.4f}", flush=True)
     xcF = NN.centred_x(xsF, ctrF, 1)
     ycF = y4F[..., :3]
     out["o2h_topk"] = dict(
         kernel=CC.O2H_KERNEL, max_abs_err=err12, shape=[F, P1, P2],
+        pairs=float(n_valid * P1), searched=searched12, cell_share=cell_share12,
         ms=cuda_time_ms(lambda: CC.launch_o2h_topk(xsF, nsF, y4F, ctrF, cidx_y), reps=3),
         plain_ms=8 * plain12_ms,
         library_ms=cuda_time_ms(lambda: library_min_idx(ycF, xcF, groups=256), reps=1),
@@ -2799,6 +2814,57 @@ def check_topk_edges() -> None:
     print(f"h2o_topk on the tie scene (reversed candidate lists, an empty cell in each, an all-invalid cloud, "
           f"P1 {P1}, P2 {P2}, K {K}, y_group 1 and 4): equal to plain ({ties} rows whose minimum two points "
           f"reach), and with ids out of range skipped; in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def check_o2h_topk_edges() -> None:
+    """#12 on the tie scenes of tests/test_torch_o2h_cells.py: hand rows
+    copied inside a 32-row segment, across segments and into the next tile;
+    P1 778 (a 10-row last tile), P2 1000 (a 104-point last cell), and P1
+    300 (44 rows), P2 700 (60 points); an all-invalid cell in every frame
+    and an all-invalid frame; every tile listed in order, and 4 tiles
+    reversed and rotated. Values, indices and numerators bit-equal to the
+    test's numpy reference of the contract and to plain_o2h_topk; then with
+    ids out of range in the lists (skipped), against the reference."""
+    import importlib.util
+    import itertools
+
+    import torch
+
+    from oakink2_tamf_tpu_torch.ops import chamfer_cluster as CC
+
+    # the test file by its path: another installed package may be called `tests`
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "test_torch_o2h_cells.py")
+    spec = importlib.util.spec_from_file_location("test_torch_o2h_cells", path)
+    tm = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tm)
+    LISTS, SIZES, o2h_reference, o2h_scene = tm.LISTS, tm.SIZES, tm.o2h_reference, tm.o2h_scene
+    t0 = time.perf_counter()
+    ties = 0
+    for lists, (P1, P2) in itertools.product(LISTS, SIZES):
+        ops, _ = o2h_scene(lists, P1=P1, P2=P2)
+        ops = [t.cuda() for t in ops]
+        d, i, dot, n_ties = o2h_reference(*ops)
+        ties += n_ties
+        got = CC.launch_o2h_topk(*ops)
+        for nm, a, b, c in zip(("o2h_d", "o2h_i", "o2h_dot"), got, (d, i, dot), CC.plain_o2h_topk(*ops)):
+            require(torch.equal(a, torch.from_numpy(b).cuda()), f"o2h_topk {nm} differs from the reference "
+                    f"on the tie scene ({lists} lists, P1 {P1}, P2 {P2})")
+            require(torch.equal(a, c), f"o2h_topk {nm} differs from plain on the tie scene ({lists} lists, "
+                    f"P1 {P1}, P2 {P2})")
+        oor = ops[4].clone()
+        oor[:, :, 0] = -1
+        oor[:, 1::2, 1] = CC._cdiv(ops[0].shape[1], CC.S_CELL) + 3
+        got = CC.launch_o2h_topk(*ops[:4], oor)
+        for nm, a, b in zip(("o2h_d", "o2h_i", "o2h_dot"), got, o2h_reference(*ops[:4], oor)):
+            require(torch.equal(a, torch.from_numpy(b).cuda()), f"o2h_topk {nm} with ids out of range differs "
+                    f"from the reference ({lists} lists, P1 {P1}, P2 {P2})")
+    torch.cuda.synchronize()
+    require(ties > 100, "the #12 tie scenes tie too few minima")
+    sizes = " and ".join(f"{a} x {b}" for a, b in SIZES)
+    print(f"o2h_topk on the tie scenes (rows copied within a segment, across segments and tiles; P1 x P2 {sizes}; "
+          f"an all-invalid cell and frame; lists {' and '.join(LISTS)}): equal to the reference and to plain "
+          f"({ties} points whose minimum two rows reach), and with ids out of range skipped; in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def small_r_cluster_parity() -> None:
@@ -3075,7 +3141,7 @@ def main() -> int:
         print("\n".join(ln for ln in k.ptxas_log.splitlines() if "Used" in ln or "spill" in ln))
     sass = {}
     for k in (CS.KERNEL, CL.KERNEL, CL.CULL_KERNEL, CC.H2O_KERNEL, CU.KERNEL, CU.DVEC_KERNEL, NN.KERNEL,
-              NN.DVEC_KERNEL):  # the pair searches' hot loop
+              NN.DVEC_KERNEL, CC.O2H_KERNEL):  # the pair searches' hot loop
         st = sass[k.name] = sass_inner_loop(k)
         print(f"{k.name} SASS hot loop: {st['instructions']} instructions, {st['fast_path']} without the row "
               f"merge, {st['pairs']} pairs: {st['fast_path'] / max(st['pairs'], 1):.3f} per pair; "
@@ -3107,10 +3173,11 @@ def main() -> int:
     phase("cluster kernels")
     kstats.update(check_cluster_kernels())
     check_topk_edges()
+    check_o2h_topk_edges()
     for name in ("dist_loss", "dist_loss_cull", "h2o_topk", "h2o_cull", "h2o_cull_dvec", "h2o_nn",
-                 "h2o_nn_dvec"):  # the redesigned searches
+                 "h2o_nn_dvec", "o2h_topk"):  # the redesigned searches
         st, o = sass[name], kstats[name]
-        cells = name.startswith("h2o_")  # one search direction: 7 instructions per pair at least
+        cells = name.startswith(("h2o_", "o2h_"))  # one search direction: 7 instructions per pair at least
         floor = issue_floor_ms(o["pairs"], 7 if cells else INSTR_PER_PAIR)
         extra = ""
         if "ms_2048" in o:

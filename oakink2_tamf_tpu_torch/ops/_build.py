@@ -3,8 +3,9 @@
 Each `csrc/*.cu` file is compiled by `nvcc` for sm_90a into its own shared
 library with a plain C interface and loaded with ctypes. The build runs at
 first use into `ops/_build/` (listed in .gitignore), keyed by a hash of the
-sources, so a changed source rebuilds. `build_all()` starts one `nvcc` per
-source at once.
+sources, so a changed source rebuilds; ptxas' report (`Kernel.ptxas_log`)
+is kept beside each library. `build_all()` starts one `nvcc` per source at
+once.
 
 Nothing here runs at import: the CPU tests import every module of the port,
 and a machine without a GPU has no nvcc.
@@ -68,6 +69,9 @@ class Kernel:
         Returns (process, temporary output, final path) or None."""
         src, so = self._paths()
         if os.path.isfile(so):
+            if not self.ptxas_log and os.path.isfile(f"{so}.ptxas"):  # built by an earlier process
+                with open(f"{so}.ptxas") as f:
+                    self.ptxas_log = f.read()
             return None
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{so}.{os.getpid()}.tmp"
@@ -86,6 +90,9 @@ class Kernel:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {self.source} (rc {proc.returncode}):\n{out}")
         self.ptxas_log = out
+        with open(f"{tmp}.ptxas", "w") as f:  # beside the library, for a later process
+            f.write(out)
+        os.replace(f"{tmp}.ptxas", f"{so}.ptxas")
         os.replace(tmp, so)
 
     def lib(self) -> ctypes.CDLL:

@@ -42,7 +42,9 @@ as XLA runs them there, on the CPU and the GPU alike):
        `_h2o_topk_bwd_kernel(_nogy)` (:558 / :596);
    #12 `o2h_topk` (csrc/o2h_topk.cu) replaces `_o2h_topk_kernel` (:801):
        each object point's min over its cell's candidate tiles, the first
-       row reaching it and the sign numerator;
+       row reaching it and the sign numerator; one block per frame stages
+       the hand once and skips the cells without a valid point
+       (`cell_flags`), whose points keep what finding nothing gives;
    #13 `o2h_topk_bwd` (csrc/o2h_topk_bwd.cu) replaces
        `_o2h_topk_bwd_kernel(_nogy)` (:944 / :981): the warp-aggregated
        scatter of csrc/o2h_scatter_common.cuh, shared with #7's o2h side
@@ -91,6 +93,9 @@ N_REPS = 8  # representative points per cell / tile for the upper bound ub
 H2O_FRAME_CHUNK = 256  # frames per selection pass (the JAX package's chunks)
 O2H_FRAME_CHUNK = 128
 _PLAIN_CHUNK_ELEMS = 1 << 25  # bound on the plain kernels' pair differences per step
+# #12 stages a frame's rows as float4 in the 48 KB of shared memory a launch
+# takes without asking
+O2H_MAX_ROWS = 48 * 1024 // 16
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -110,7 +115,7 @@ O2H_KERNEL = Kernel(
     "o2h_topk", "o2h_topk.cu",
     replaces="oakink2_tamf_tpu/ops/chamfer_cluster.py:801",
     symbol="o2h_topk_launch",
-    argtypes=[_P] * 8 + [_I] * 5 + [_P],
+    argtypes=[_P] * 9 + [_I] * 5 + [_P],
 )
 O2H_BWD_KERNEL = Kernel(
     "o2h_topk_bwd", "o2h_topk_bwd.cu",
@@ -419,7 +424,8 @@ def plain_o2h_topk(xs, ns, y4, ctr, cidx_y):
     """Kernel #12's function in plain PyTorch: (o2h_d, o2h_i (permuted row
     index), o2h_dot) [F, P2] of each point over its cell's candidate tiles,
     in candidate order with a strict < and ascending within a tile; an
-    invalid point keeps (BIG, 0). One cloud per frame."""
+    invalid point keeps (BIG, 0) and the numerator at row 0. One cloud per
+    frame."""
     F, P1, _ = xs.shape
     P2 = y4.shape[1]
     C, Kx = cidx_y.shape[1:]
@@ -463,17 +469,18 @@ def launch_o2h_topk(xs, ns, y4, ctr, cidx_y):
             or cidx_y.shape[0] != F or C != _cdiv(P2, S_CELL) or Kx < 1:
         raise ValueError(f"bad operand shapes xs {tuple(xs.shape)} y4 {tuple(y4.shape)} "
                          f"cidx_y {tuple(cidx_y.shape)}")
-    if P1 > CS.MAX_ROWS:
-        raise ValueError(f"{P1} rows exceed the {CS.MAX_ROWS} the block stages in shared memory")
+    if P1 > O2H_MAX_ROWS:
+        raise ValueError(f"{P1} rows exceed the {O2H_MAX_ROWS} the block stages in shared memory")
     if F * C >= 2**31:
         raise ValueError("too many blocks for one launch")
     dev = xs.device
+    live = cell_flags(y4)
     o2h_d = torch.empty((F, P2), dtype=f32, device=dev)
     o2h_i = torch.empty((F, P2), dtype=torch.int32, device=dev)
     o2h_dot = torch.empty((F, P2), dtype=f32, device=dev)
     with torch.cuda.device(dev):
         O2H_KERNEL.launch(
-            xs.data_ptr(), ns.data_ptr(), y4.data_ptr(), ctr.data_ptr(), cidx_y.data_ptr(),
+            xs.data_ptr(), ns.data_ptr(), y4.data_ptr(), ctr.data_ptr(), cidx_y.data_ptr(), live.data_ptr(),
             o2h_d.data_ptr(), o2h_i.data_ptr(), o2h_dot.data_ptr(), F, P1, P2, C, Kx,
             torch.cuda.current_stream().cuda_stream,
         )

@@ -3,10 +3,12 @@
 // point y_j, the first hand row i that minimises ||x_i - y_j||^2, and the
 // sign numerator n_i . (y_j - x_i) read from that row.
 //
-// Layout: a block stages its frame's hand rows, centred on the group's
-// y-mean like the h2o kernels centre them, and their normals in shared
-// memory as float4 (P1 x 32 bytes, 24.9 KB for the 778 MANO rows); the
-// searches themselves are the kernels' own (bidir_common.cuh, o2h_topk.cu).
+// Layout: a block of nn_signed.cu or dist_loss*.cu stages its frame's hand
+// rows, centred on the group's y-mean like the h2o kernels centre them, and
+// their normals in shared memory as float4 (P1 x 32 bytes, 24.9 KB for the
+// 778 MANO rows); o2h_topk.cu stages the rows alone, centred the same way,
+// and reads the winner's normal from global memory. The searches
+// themselves are the kernels' own (bidir_common.cuh, o2h_topk.cu).
 #pragma once
 
 #include "h2o_common.cuh"

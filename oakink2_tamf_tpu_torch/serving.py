@@ -116,7 +116,9 @@ class TamfPipeline:
             device=self.device, generator=generator, noise=noise, step_noise=step_noise,
         )
         b2 = dict(batch)
-        # R sees G's sample zero-padded past each true length, as in the reference
+        # R sees G's sample zero-padded past each true length, as the JAX
+        # package's serving does (oakink2_tamf_tpu/serving.py:87); the original
+        # TaMF chain feeds R the raw padded sample instead
         b2["sample_pose_repr"] = sample * batch["mask"][:, :, None]
         out = refine_forward(self.refine_net, self.mano_stack, b2, with_target=False,
                              loss_frame_mask=batch["mask"])
