@@ -125,7 +125,22 @@ Phases (any failure exits non-zero and prints no result line):
    1000 DDPM steps, batch 16 x 160 frames x 4 objects x 8192 points; one
    generate of 16 segments; the culled kernel must have launched;
 18. the all-pairs route: the same at 2048 points with 50 respaced steps; the
-   all-pairs kernel must have launched.
+   all-pairs kernel must have launched;
+19. small sampler parity: parallel/train.make_g_sampler with each sampler
+   (ddpm, ddim, plms, parallel) and models/extract_sample at 256 and 4096
+   points (#1, #2), GPU against CPU with the same small weights, batch and
+   noise: 1e-3;
+20. the samplers at full width: make_g_sampler at arch_mdm_l G, batch 64 x
+   160 frames x 4 slots x 8192 points, 1000-step cosine schedule, DDPM,
+   DDIM and PLMS once each (samples/s, finite), the parallel sampler at
+   batch 4 (window 64, tol 1e-2: sweeps, model evaluations, wall time)
+   beside DDPM at batch 4; then the G -> R chain, extract_refined_sample on
+   the same 64 segments (DDPM, same seed) and default R: #2 must launch, #1
+   not (segments/s);
+21. the sample launchers: launch/sample_g.main (16 .npy) and then
+   launch/sample_r.main on those samples (16 save_dict.pkl) on the smoke
+   config with --commit in a temporary directory; the weights, batches and
+   outputs on the card, #1 launched.
 
 The line before the last is the card's name and power limit
 (nvidia-smi); before it, one JSON line with every kernel's numbers. The
@@ -426,7 +441,7 @@ def small_parity() -> None:
         cpu = TamfPipeline.load(device="cpu", **kw)
         segs = [SyntheticSegments(2, seq_len=16, max_nobj=2, n_obj_points=P)[i] for i in range(2)]
         g = torch.Generator().manual_seed(3)
-        noise = [(torch.randn(2, 16, 99, generator=g), torch.randn(4, 2, 16, 99, generator=g))]
+        noise = [{"noise": torch.randn(2, 16, 99, generator=g), "step_noise": torch.randn(4, 2, 16, 99, generator=g)}]
         a = gpu.generate(segs, noise=noise)
         b = cpu.generate(segs, noise=noise)
         for ra, rb in zip(a, b):
@@ -3112,6 +3127,264 @@ def r_cluster_entry_point() -> None:
           f"'{ok[0]}'", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# The samplers and the G -> R sampling chain
+# ---------------------------------------------------------------------------
+
+SAMPLE_BS, SAMPLE_PARALLEL_BS = 64, 4  # sample_g's batch at full width; the parallel sampler's regime
+SAMPLERS = ("ddpm", "ddim", "plms", "parallel")
+# a depth cut for DDIM, PLMS and the parallel sampler ("" = all 1000 steps);
+# DDPM always runs 1000
+SAMPLE_RESPACING = ""
+
+
+def _sampler_noise(sampler: str, T: int, shape, seed: int) -> dict:
+    """The sampler's noise keywords, drawn on the CPU from `seed`."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    noise = {"noise": torch.randn(shape, generator=g)}
+    if sampler == "ddpm":
+        noise["step_noise"] = torch.randn((T,) + tuple(shape), generator=g)
+    elif sampler == "parallel":
+        noise["t_noise"] = torch.randn((T,) + tuple(shape), generator=g)
+    return noise
+
+
+def small_sampler_parity() -> None:
+    """Each sampler through parallel/train.make_g_sampler, and
+    extract_refined_sample on both h2o routes, on the card and on the CPU
+    with the same small weights, batch and noise: 1e-3."""
+    import numpy as np
+    import torch
+
+    from oakink2_tamf_tpu_torch.core import diffusion as D
+    from oakink2_tamf_tpu_torch.core import mano as M
+    from oakink2_tamf_tpu_torch.data.synthetic import SyntheticSegments
+    from oakink2_tamf_tpu_torch.models.clip_text import FrozenClipText
+    from oakink2_tamf_tpu_torch.models.extract_sample import extract_refined_sample
+    from oakink2_tamf_tpu_torch.models.mdm_g import InteractionSegmentMDM, MDMConfig
+    from oakink2_tamf_tpu_torch.models.refine_r import RefineConfig, SegmentRefineNet, stack_mano_models
+    from oakink2_tamf_tpu_torch.parallel import train as PT
+
+    small = dict(latent_dim=32, ff_size=64, num_layers=2, num_heads=2, dropout=0.0)
+    T = 8
+    torch.manual_seed(0)
+    g_cpu, r_cpu = InteractionSegmentMDM(MDMConfig(**small)).eval(), SegmentRefineNet(RefineConfig(**small)).eval()
+    g_gpu = InteractionSegmentMDM(MDMConfig(**small)).cuda().eval()
+    r_gpu = SegmentRefineNet(RefineConfig(**small)).cuda().eval()
+    g_gpu.load_state_dict(g_cpu.state_dict())
+    r_gpu.load_state_dict(r_cpu.state_dict())
+    sched = D.tamf_schedule(T)
+    clips = {d: FrozenClipText(device=d) for d in ("cpu", "cuda")}
+    for P in (256, 4096):
+        segs = [SyntheticSegments(2, seq_len=16, max_nobj=2, n_obj_points=P, seed=5)[i] for i in range(2)]
+        batch = {d: _train_batch(2, 16, 2, P, seed=5, clip=clips[d], device=torch.device(d)) for d in clips}
+        for sampler in SAMPLERS if P == 256 else ("ddpm",):
+            noise = _sampler_noise(sampler, T, (2, 16, 99), seed=6)
+            fn = {d: PT.make_g_sampler(sched.to(d), sampler=sampler, parallel_window=4) for d in clips}
+            a = fn["cuda"](g_gpu, batch["cuda"], None, noise=noise)
+            b = fn["cpu"](g_cpu, batch["cpu"], None, noise=noise)
+            require(a.is_cuda, f"{sampler}: the sample is not on the card")
+            err = float((a.cpu() - b).abs().max())
+            require(err < 1e-3, f"GPU vs CPU {sampler} sampler differs by {err}")
+            print(f"small {sampler} sampler: GPU matches CPU, max abs err {err:.3g}", flush=True)
+        mano = {d: stack_mano_models(M.get_mano_model(None, "right"), M.get_mano_model(None, "left"), d)
+                for d in clips}
+        noise = _sampler_noise("ddpm", T, (2, 16, 99), seed=7)
+        out = {d: extract_refined_sample(g, sched.to(d), r, mano[d], segs, clips[d], max_nobj=2,
+                                         n_obj_points=P, noise=noise)
+               for d, g, r in (("cuda", g_gpu, r_gpu), ("cpu", g_cpu, r_cpu))}
+        err = float(np.abs(out["cuda"] - out["cpu"]).max())
+        require(err < 1e-3, f"GPU vs CPU extract_refined_sample at P={P} differs by {err}")
+        print(f"small extract_refined_sample P={P}: GPU (kernels) matches CPU (plain), max abs err {err:.3g}",
+              flush=True)
+
+
+def sampler_main_path():
+    """make_g_sampler at full width: arch_mdm_l G, batch 64 x 160 frames x 4
+    slots x 8192 points, 1000-step cosine schedule, each sampler once (the
+    parallel one at batch 4 beside DDPM at batch 4); then the G -> R chain,
+    extract_refined_sample on the same 64 segments with DDPM, which must
+    launch #2 and not #1. Returns (#2's launches in the chain, stats)."""
+    import numpy as np
+    import torch
+
+    from oakink2_tamf_tpu_torch.core import diffusion as D
+    from oakink2_tamf_tpu_torch.core import mano as M
+    from oakink2_tamf_tpu_torch.data.synthetic import SyntheticSegments
+    from oakink2_tamf_tpu_torch.models.clip_text import FrozenClipText
+    from oakink2_tamf_tpu_torch.models.extract_sample import extract_refined_sample
+    from oakink2_tamf_tpu_torch.models.mdm_g import InteractionSegmentMDM, MDMConfig
+    from oakink2_tamf_tpu_torch.models.refine_r import SegmentRefineNet, RefineConfig, stack_mano_models
+    from oakink2_tamf_tpu_torch.ops import chamfer_cull as CU
+    from oakink2_tamf_tpu_torch.ops import chamfer_nn as NN
+    from oakink2_tamf_tpu_torch.parallel import train as PT
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    torch.manual_seed(0)
+    g = InteractionSegmentMDM(MDMConfig.arch_mdm_l()).to(dev).eval().requires_grad_(False)
+    torch.manual_seed(1)
+    r = SegmentRefineNet(RefineConfig()).to(dev).eval().requires_grad_(False)
+    clip = FrozenClipText(device=dev)
+    L, nobj, P = 160, 4, 8192
+    ds = SyntheticSegments(SAMPLE_BS, seq_len=L, max_nobj=nobj, n_obj_points=P, seed=13)
+    segs = [ds[i] for i in range(SAMPLE_BS)]
+    db = _train_batch(SAMPLE_BS, L, nobj, P, seed=13, clip=clip, device=dev)
+    full = D.tamf_schedule(1000).to(dev)
+    cut = D.tamf_schedule(1000, "cosine", SAMPLE_RESPACING).to(dev) if SAMPLE_RESPACING else full
+    torch.cuda.synchronize()
+    print(f"samplers: load + {SAMPLE_BS} segments {time.perf_counter() - t0:.2f} s; DDIM, PLMS and parallel at "
+          f"{cut.num_timesteps} steps" + (f" (respaced '{SAMPLE_RESPACING}')" if SAMPLE_RESPACING else ""),
+          flush=True)
+    stats = {}
+    samples = {}
+    for sampler in ("ddpm", "ddim", "plms"):
+        sched = full if sampler == "ddpm" else cut
+        fn = PT.make_g_sampler(sched, sampler=sampler)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = fn(g, db, torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        finite = bool(torch.isfinite(x).all())
+        require(tuple(x.shape) == (SAMPLE_BS, L, 99) and finite, f"{sampler}: shape {tuple(x.shape)}, finite {finite}")
+        samples[sampler] = x
+        stats[sampler] = {"wall_s": wall, "samples_per_s": SAMPLE_BS / wall, "steps": sched.num_timesteps}
+        print(f"sampler {sampler}: batch {SAMPLE_BS} x {L} frames, {sched.num_timesteps} steps, {wall:.3f} s = "
+              f"{SAMPLE_BS / wall:.3f} samples/s ({wall / sched.num_timesteps * 1e3:.3f} ms per step); "
+              f"finite {finite}", flush=True)
+
+    # the parallel sampler at batch 4: its sweeps and latency beside DDPM's
+    small = {k: v[:SAMPLE_PARALLEL_BS] for k, v in db.items()}
+    with torch.inference_mode():
+        fn_ddpm = PT.make_g_sampler(full)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x4 = fn_ddpm(g, small, torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        ddpm4 = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        xp, info = D.p_sample_loop_parallel(
+            PT.g_model_fn(g, PT.g_cond_from_batch(small)), cut, tuple(x4.shape), device=dev,
+            generator=torch.Generator(device=dev).manual_seed(0), window=64, tol=1e-2, return_info=True)
+        torch.cuda.synchronize()
+        par4 = time.perf_counter() - t0
+    finite = bool(torch.isfinite(xp).all())
+    require(finite and tuple(xp.shape) == (SAMPLE_PARALLEL_BS, L, 99), "parallel: non-finite or misshapen sample")
+    require(info["n_sweeps"] <= cut.num_timesteps, f"parallel: {info}")
+    stats["parallel"] = {"wall_s": par4, "ddpm_wall_s": ddpm4, "steps": cut.num_timesteps, **info}
+    print(f"sampler parallel: batch {SAMPLE_PARALLEL_BS}, window 64, tol 1e-2, {cut.num_timesteps} steps: "
+          f"{info['n_sweeps']} sweeps, {info['n_model_evals']} model evals (one call of "
+          f"{min(64, cut.num_timesteps) * SAMPLE_PARALLEL_BS} rows per sweep), {par4:.3f} s; DDPM at batch "
+          f"{SAMPLE_PARALLEL_BS}, 1000 steps: "
+          f"{ddpm4:.3f} s ({ddpm4 / par4:.2f}x); finite {finite}", flush=True)
+    del samples["ddim"], samples["plms"]
+    torch.cuda.empty_cache()
+
+    # the G -> R chain on the same 64 segments, DDPM with the same generator seed
+    mano = stack_mano_models(M.get_mano_model(None, "right"), M.get_mano_model(None, "left"), dev)
+    NN.KERNEL.launches = 0
+    CU.KERNEL.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    refined = extract_refined_sample(g, full, r, mano, segs, clip, torch.Generator(device=dev).manual_seed(0),
+                                     max_nobj=nobj, n_obj_points=P)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"h2o_nn": NN.KERNEL.launches, "h2o_cull": CU.KERNEL.launches}
+    require(counts["h2o_cull"] > 0 and counts["h2o_nn"] == 0, f"G->R chain at {P} points: launches {counts}")
+    require(refined.shape == (SAMPLE_BS, L, 99) and np.isfinite(refined).all(), "G->R chain: bad refined output")
+    stats["chain"] = {"wall_s": wall, "segments_per_s": SAMPLE_BS / wall, **counts}
+    print(f"G->R chain (extract_refined_sample, DDPM 1000 steps + R): {SAMPLE_BS} segments x {L} frames x {nobj} "
+          f"slots x {P} points in {wall:.3f} s = {SAMPLE_BS / wall:.3f} segments/s ({stats['ddpm']['wall_s']:.3f} s "
+          f"of it the DDPM chain alone above); launches {counts}", flush=True)
+    del samples, g, r
+    torch.cuda.empty_cache()
+    return counts["h2o_cull"], stats
+
+
+def sample_entry_points() -> int:
+    """launch/sample_g.main then launch/sample_r.main on the synthetic smoke
+    config on the card, with --commit, in a temporary directory: 16 .npy
+    samples, then 16 save_dict.pkl refined from them (128-point clouds:
+    #1). The G and R weights, the batches and the outputs must sit on the
+    card. Returns #1's launches."""
+    import pickle
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from oakink2_tamf_tpu_torch.launch import sample_g, sample_r
+    from oakink2_tamf_tpu_torch.ops import chamfer_cull as CU
+    from oakink2_tamf_tpu_torch.ops import chamfer_nn as NN
+    from oakink2_tamf_tpu_torch.parallel import train as PT
+
+    cfg = os.path.join(os.path.dirname(os.path.abspath(__file__)), "config/synthetic_smoke.yml")
+    seen = []
+    make_g_sampler, refine_forward = PT.make_g_sampler, sample_r.refine_forward
+
+    def recording_sampler(*a, **kw):
+        fn = make_g_sampler(*a, **kw)
+
+        def sample_fn(model, batch, generator, noise=None):
+            out = fn(model, batch, generator, noise)
+            seen.append(("G", next(model.parameters()).device.type, batch["pose_repr"].device.type, out.device.type))
+            return out
+
+        return sample_fn
+
+    def recording_forward(net, mano_stack, batch, **kw):
+        out = refine_forward(net, mano_stack, batch, **kw)
+        seen.append(("R", next(net.parameters()).device.type, batch["sample_pose_repr"].device.type,
+                     out["refine_pose_repr"].device.type))
+        return out
+
+    cwd = os.getcwd()
+    NN.KERNEL.launches = 0
+    CU.KERNEL.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        PT.make_g_sampler, sample_r.refine_forward = recording_sampler, recording_forward
+        try:
+            t0 = time.perf_counter()
+            out_dir = sample_g.main(["--cfg", cfg, "--exp_id", "chip_smoke_sg", "--sample.batch_size", "8",
+                                     "--commit"])
+            t_g = time.perf_counter() - t0
+            files = sorted(os.listdir(out_dir))
+            arrays = [np.load(os.path.join(out_dir, f)) for f in files]
+            t0 = time.perf_counter()
+            out_root = sample_r.main(["--cfg", cfg, "--exp_id", "chip_smoke_sr", "--sample.batch_size", "8",
+                                      "--test.data.pose_repr_sample_dir_list", out_dir, "--commit"])
+            t_r = time.perf_counter() - t0
+            pkls = [os.path.join(d, f) for d, _, fs in os.walk(out_root) for f in fs if f == "save_dict.pkl"]
+            dicts = []
+            for p in pkls:
+                with open(p, "rb") as f:
+                    dicts.append(pickle.load(f))
+        finally:
+            PT.make_g_sampler, sample_r.refine_forward = make_g_sampler, refine_forward
+            os.chdir(cwd)
+    counts = {"h2o_nn": NN.KERNEL.launches, "h2o_cull": CU.KERNEL.launches}
+    require(files == [f"{i:06d}.npy" for i in range(16)], f"sample_g wrote {files}")
+    require(all(a.shape == (32, 99) and np.isfinite(a).all() for a in arrays), "sample_g: bad samples")
+    require(len(dicts) == 16, f"sample_r wrote {len(dicts)} save_dict.pkl")
+    for d in dicts:
+        require(d["verts"].shape == (32, 778, 3) and d["joints"].shape == (32, 21, 3)
+                and d["refine_pose_repr"].shape == (32, 99) and d["faces"].ndim == 2
+                and all(np.isfinite(d[k]).all() for k in ("verts", "joints", "refine_pose_repr")),
+                "sample_r: bad save_dict")
+    require(seen and all(s[1:] == ("cuda", "cuda", "cuda") for s in seen), f"launchers off the card: {seen}")
+    require(counts["h2o_nn"] > 0, f"sample_r: #1 never launched ({counts})")
+    print(f"sample_g.main (synthetic_smoke.yml, cuda, --commit): {len(files)} samples in {t_g:.2f} s; "
+          f"sample_r.main on them: {len(dicts)} save_dict.pkl in {t_r:.2f} s; G and R calls on the card "
+          f"{len(seen)}; launches {counts}", flush=True)
+    torch.cuda.synchronize()
+    return counts["h2o_nn"]
+
+
 def main() -> int:
     import torch
 
@@ -3241,12 +3514,20 @@ def main() -> int:
     cull_counts, _ = main_path(8192, "", "h2o_cull", "main path (cull route, 8192 points)")
     phase("serving main path, all-pairs route")
     nn_counts, _ = main_path(2048, "50", "h2o_nn", "main path (all-pairs route, 2048 points)")
-    # each kernel's count from the path that runs it: serving for #1/#2, the
-    # fused G training path for #6/#8, its fused_cull route for #9, the
+    phase("small sampler parity")
+    small_sampler_parity()
+    phase("samplers and the G->R chain at full width")
+    chain_cull, sample_stats = sampler_main_path()
+    phase("sample_g and sample_r entry points")
+    launcher_nn = sample_entry_points()
+    print("sampling: " + json.dumps(sample_stats), flush=True)
+    # each kernel's count from the paths that run it: serving for #1/#2 (#1
+    # also in sample_r, #2 also in the full-width G->R chain), the fused G
+    # training path for #6/#8, its fused_cull route for #9, the
     # composed route for #7, the R training paths for #3 (cull) and #4
     # (all-pairs), the grad_y path for #5, the R cluster route for #10/#11,
     # the signed cluster entry point for #12/#13
-    launches = {"h2o_nn": nn_counts["h2o_nn"], "h2o_cull": cull_counts["h2o_cull"],
+    launches = {"h2o_nn": nn_counts["h2o_nn"] + launcher_nn, "h2o_cull": cull_counts["h2o_cull"] + chain_cull,
                 "nn_signed": train_counts["nn_signed"], "dist_loss": train_counts["dist_loss"],
                 "dist_loss_cull": fc_counts["dist_loss_cull"],
                 "nn_signed_bwd": composed_counts["nn_signed_bwd"],

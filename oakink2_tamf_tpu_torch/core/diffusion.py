@@ -4,12 +4,22 @@ The schedule is computed in float64 numpy, exactly as the JAX package does,
 then cast to float32 tensors on the device. The TaMF configuration: cosine
 betas, START_X prediction, FIXED_SMALL variance, optional respacing.
 
-The reverse chain (`p_sample_loop`) is a Python loop on the device. It takes
-an optional explicit initial noise and per-step noise so a test can feed it
-the JAX chain's noise. DDIM, PLMS and the parallel sampler are not ported yet.
+The samplers are Python loops on the device, one model call per step:
+- `p_sample_loop` (DDPM, with const_noise, skip_timesteps and init_image)
+  and `p_sample_loop_trajectory` (the chain's states, stacked);
+- `ddim_sample_loop` (eta), `plms_sample_loop` (order 1-4);
+- `p_sample_loop_parallel`, Picard windows: one model call per sweep on a
+  window of steps.
+`sample_loop` dispatches on the sampler's name. Each sampler takes its noise
+explicitly so a test can feed it the JAX chain's draws: `noise` is x_T,
+`step_noise` [S, ...] the per-step noise in chain order (index 0 is the
+first step, t = T-1), and the parallel sampler's `t_noise` [T, ...] is
+indexed by the timestep t. What is not given is drawn from a
+torch.Generator. `clip_denoised`, `denoised_fn` and `cond_fn` act as in the
+JAX package.
 
 Training (`training_losses`): START_X prediction, MSE loss, FIXED_SMALL
-variance, the configuration of every TaMF config; the KL / learned-variance
+variance, the configuration of every TaMF config. The KL / learned-variance
 branches of the JAX package are not ported. It takes an explicit `noise=`
 so a test can feed both sides the same noise.
 
@@ -202,19 +212,45 @@ def q_posterior_mean_variance(sched: DiffusionSchedule, x_start, x_t, t):
     return mean, variance, log_variance
 
 
+# ---------------------------------------------------------------------------
+# Reverse process p: one step, and the x_0 / eps identities
+# ---------------------------------------------------------------------------
+
+
+def predict_xstart_from_eps(sched: DiffusionSchedule, x_t, t, eps):
+    return (
+        _extract(sched.sqrt_recip_alphas_cumprod, t, x_t.ndim) * x_t
+        - _extract(sched.sqrt_recipm1_alphas_cumprod, t, x_t.ndim) * eps
+    )
+
+
+def predict_eps_from_xstart(sched: DiffusionSchedule, x_t, t, pred_xstart):
+    return (
+        _extract(sched.sqrt_recip_alphas_cumprod, t, x_t.ndim) * x_t - pred_xstart
+    ) / _extract(sched.sqrt_recipm1_alphas_cumprod, t, x_t.ndim)
+
+
 def p_mean_variance(
     model_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
     sched: DiffusionSchedule,
     x: torch.Tensor,
     t: torch.Tensor,
+    *,
+    clip_denoised: bool = False,
+    denoised_fn: Callable[[torch.Tensor], torch.Tensor] | None = None,
 ) -> dict[str, torch.Tensor]:
-    """p(x_{t-1} | x_t) for START_X prediction with FIXED_SMALL variance and
-    no x_0 clipping (the TaMF configuration). `model_fn(x, t_model)` closes
-    over the conditioning; t_model is respaced."""
-    model_output = model_fn(x, sched.timestep_map[t])
+    """p(x_{t-1} | x_t) for START_X prediction with FIXED_SMALL variance.
+    `model_fn(x, t_model)` closes over the conditioning; t_model is
+    respaced. The predicted x_0 passes through `denoised_fn`, then is
+    clipped to [-1, 1] with `clip_denoised`."""
+    model_output = model_fn(x, model_timesteps(sched, t))
     variance = _extract(sched.posterior_variance, t, x.ndim)
     log_variance = _extract(sched.posterior_log_variance_clipped, t, x.ndim)
     pred_xstart = model_output
+    if denoised_fn is not None:
+        pred_xstart = denoised_fn(pred_xstart)
+    if clip_denoised:
+        pred_xstart = torch.clamp(pred_xstart, -1.0, 1.0)
     mean, _, _ = q_posterior_mean_variance(sched, pred_xstart, x, t)
     return {
         "mean": mean,
@@ -225,18 +261,89 @@ def p_mean_variance(
     }
 
 
+def condition_mean(cond_fn, sched: DiffusionSchedule, p_mean_var, x, t) -> torch.Tensor:
+    """Classifier guidance: the mean shifted by variance * cond_fn(x, t_model)."""
+    gradient = cond_fn(x, model_timesteps(sched, t))
+    return p_mean_var["mean"].float() + p_mean_var["variance"] * gradient.float()
+
+
+def condition_score(cond_fn, sched: DiffusionSchedule, p_mean_var, x, t) -> dict[str, torch.Tensor]:
+    """Score conditioning (Song et al.): eps moved by -sqrt(1 - alpha_bar) *
+    cond_fn(x, t_model); pred_xstart and the mean follow from it."""
+    alpha_bar = _extract(sched.alphas_cumprod, t, x.ndim)
+    eps = predict_eps_from_xstart(sched, x, t, p_mean_var["pred_xstart"])
+    eps = eps - torch.sqrt(1 - alpha_bar) * cond_fn(x, model_timesteps(sched, t))
+    pred_xstart = predict_xstart_from_eps(sched, x, t, eps)
+    mean, _, _ = q_posterior_mean_variance(sched, pred_xstart, x, t)
+    return dict(p_mean_var, pred_xstart=pred_xstart, mean=mean)
+
+
 def p_sample(
     model_fn,
     sched: DiffusionSchedule,
     x: torch.Tensor,
     t: torch.Tensor,
     noise: torch.Tensor,
+    *,
+    clip_denoised: bool = False,
+    denoised_fn=None,
+    cond_fn=None,
+    const_noise: bool = False,
 ) -> dict[str, torch.Tensor]:
-    """One ancestral step x_t -> x_{t-1} with the given unit noise."""
-    out = p_mean_variance(model_fn, sched, x, t)
+    """One ancestral step x_t -> x_{t-1} with the given unit noise; with
+    `const_noise` every sample takes the noise of sample 0."""
+    out = p_mean_variance(model_fn, sched, x, t, clip_denoised=clip_denoised, denoised_fn=denoised_fn)
+    if const_noise:
+        noise = noise[0:1].expand(x.shape)
     nonzero_mask = (t != 0).to(x.dtype).reshape((-1,) + (1,) * (x.ndim - 1))
-    sample = out["mean"] + nonzero_mask * torch.exp(0.5 * out["log_variance"]) * noise
+    mean = out["mean"]
+    if cond_fn is not None:
+        mean = condition_mean(cond_fn, sched, out, x, t)
+    sample = mean + nonzero_mask * torch.exp(0.5 * out["log_variance"]) * noise
     return {"sample": sample, "pred_xstart": out["pred_xstart"]}
+
+
+# ---------------------------------------------------------------------------
+# The samplers. Each draws from `generator` on `device` whatever noise it
+# is not given, in chain order: x_T first, then one draw per step.
+# ---------------------------------------------------------------------------
+
+
+def _randn(shape, generator, device) -> torch.Tensor:
+    return torch.randn(tuple(shape), generator=generator, device=device, dtype=torch.float32)
+
+
+def _check_shape(name: str, a: torch.Tensor | None, want: tuple[int, ...]) -> None:
+    if a is not None and tuple(a.shape) != tuple(want):
+        raise ValueError(f"{name} {tuple(a.shape)} != {tuple(want)}")
+
+
+def _full_t(t_scalar: int, bs: int, device) -> torch.Tensor:
+    return torch.full((bs,), t_scalar, dtype=torch.int64, device=device)
+
+
+def _chain_start(sched, shape, *, device, generator, noise, skip_timesteps, init_image):
+    """(x at the first step, number of steps). Any `init_image` is
+    q-sampled at the first step with the initial noise as the q_sample
+    noise; `skip_timesteps` without one starts from a zeros image."""
+    _check_shape("noise", noise, shape)
+    img = _randn(shape, generator, device) if noise is None else noise.to(device)
+    t_start = sched.num_timesteps - skip_timesteps
+    if skip_timesteps and init_image is None:
+        init_image = torch.zeros(shape, dtype=torch.float32, device=device)
+    if init_image is not None:
+        img = q_sample(sched, init_image.to(device), _full_t(t_start - 1, shape[0], device), img)
+    return img, t_start
+
+
+def _p_sample_steps(model_fn, sched, img, t_start, *, device, generator, step_noise, **step_kw):
+    """Yield each ancestral step's {"sample", "pred_xstart"}, t = t_start-1 .. 0."""
+    _check_shape("step_noise", step_noise, (t_start,) + tuple(img.shape))
+    for i, t_scalar in enumerate(range(t_start - 1, -1, -1)):
+        z = _randn(img.shape, generator, device) if step_noise is None else step_noise[i].to(device)
+        out = p_sample(model_fn, sched, img, _full_t(t_scalar, img.shape[0], device), z, **step_kw)
+        img = out["sample"]
+        yield out
 
 
 def p_sample_loop(
@@ -248,26 +355,302 @@ def p_sample_loop(
     generator: torch.Generator | None = None,
     noise: torch.Tensor | None = None,
     step_noise: torch.Tensor | None = None,
+    clip_denoised: bool = False,
+    denoised_fn=None,
+    cond_fn=None,
+    const_noise: bool = False,
+    skip_timesteps: int = 0,
+    init_image: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """The full reverse chain, t = T-1 .. 0. Returns the final sample.
+    """The ancestral (DDPM) chain, t = T-1-skip_timesteps .. 0. Returns the
+    final sample.
 
-    `noise` [*shape] is the initial x_T and `step_noise` [T, *shape] the unit
-    noise of each step in chain order; either one is drawn from `generator`
-    on `device` when not given."""
-    T = sched.num_timesteps
-    if noise is None:
-        noise = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
-    if step_noise is not None and tuple(step_noise.shape) != (T,) + tuple(shape):
-        raise ValueError(f"step_noise {tuple(step_noise.shape)} != {(T,) + tuple(shape)}")
-    img = noise.to(device)
-    for i, t_scalar in enumerate(range(T - 1, -1, -1)):
-        t = torch.full((shape[0],), t_scalar, dtype=torch.int64, device=device)
-        if step_noise is None:
-            z = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
-        else:
-            z = step_noise[i].to(device)
-        img = p_sample(model_fn, sched, img, t, z)["sample"]
+    `noise` [*shape] is the initial noise and `step_noise` [S, *shape] the
+    unit noise of each of the S = T - skip_timesteps steps in chain order
+    (index 0 is the first step). `init_image` and `skip_timesteps` follow
+    the reference: any init_image is q-sampled at the first step with the
+    initial noise, and skip_timesteps without one starts from a zeros image
+    (so x_start = sqrt(1 - alpha_bar) * noise)."""
+    img, t_start = _chain_start(sched, shape, device=device, generator=generator, noise=noise,
+                                skip_timesteps=skip_timesteps, init_image=init_image)
+    for out in _p_sample_steps(model_fn, sched, img, t_start, device=device, generator=generator,
+                               step_noise=step_noise, clip_denoised=clip_denoised,
+                               denoised_fn=denoised_fn, cond_fn=cond_fn, const_noise=const_noise):
+        img = out["sample"]
     return img
+
+
+def p_sample_loop_trajectory(
+    model_fn,
+    sched: DiffusionSchedule,
+    shape: tuple[int, ...],
+    *,
+    device: torch.device | str,
+    generator: torch.Generator | None = None,
+    noise: torch.Tensor | None = None,
+    step_noise: torch.Tensor | None = None,
+    clip_denoised: bool = False,
+    denoised_fn=None,
+    cond_fn=None,
+    const_noise: bool = False,
+    skip_timesteps: int = 0,
+    init_image: torch.Tensor | None = None,
+    dump_steps: Sequence[int] | None = None,
+    with_pred_xstart: bool = False,
+) -> dict[str, torch.Tensor]:
+    """`p_sample_loop` that also returns the chain's states: {"sample":
+    [bs, ...], "trajectory": [S, bs, ...] each step's output in chain order
+    (index S-1 is the final sample), and with `with_pred_xstart`
+    "pred_xstart" stacked the same way}. With `dump_steps` only those step
+    indices are kept, in ascending order."""
+    img, t_start = _chain_start(sched, shape, device=device, generator=generator, noise=noise,
+                                skip_timesteps=skip_timesteps, init_image=init_image)
+    keep = sorted(int(i) for i in dump_steps) if dump_steps is not None else range(t_start)
+    wanted = set(keep)
+    traj, preds = {}, {}
+    for i, out in enumerate(_p_sample_steps(
+            model_fn, sched, img, t_start, device=device, generator=generator, step_noise=step_noise,
+            clip_denoised=clip_denoised, denoised_fn=denoised_fn, cond_fn=cond_fn,
+            const_noise=const_noise)):
+        img = out["sample"]
+        if i in wanted:
+            traj[i] = img
+            preds[i] = out["pred_xstart"]
+
+    def stack(d):
+        return torch.stack([d[i] for i in keep]) if keep else img.new_empty((0,) + tuple(shape))
+
+    res = {"sample": img, "trajectory": stack(traj)}
+    if with_pred_xstart:
+        res["pred_xstart"] = stack(preds)
+    return res
+
+
+def ddim_sample_loop(
+    model_fn,
+    sched: DiffusionSchedule,
+    shape: tuple[int, ...],
+    *,
+    device: torch.device | str,
+    generator: torch.Generator | None = None,
+    noise: torch.Tensor | None = None,
+    step_noise: torch.Tensor | None = None,
+    clip_denoised: bool = False,
+    denoised_fn=None,
+    cond_fn=None,
+    eta: float = 0.0,
+) -> torch.Tensor:
+    """The DDIM chain, t = T-1 .. 0, with
+    sigma = eta * sqrt((1 - ab_prev) / (1 - ab)) * sqrt(1 - ab / ab_prev)
+    (ab_prev = 1 at t = 0). `noise` is x_T; `step_noise` [T, *shape], the
+    per-step noise in chain order, is used (and drawn) only when eta > 0."""
+    T = sched.num_timesteps
+    _check_shape("noise", noise, shape)
+    _check_shape("step_noise", step_noise, (T,) + tuple(shape))
+    img = _randn(shape, generator, device) if noise is None else noise.to(device)
+    for i, t_scalar in enumerate(range(T - 1, -1, -1)):
+        t = _full_t(t_scalar, shape[0], device)
+        out = p_mean_variance(model_fn, sched, img, t, clip_denoised=clip_denoised, denoised_fn=denoised_fn)
+        if cond_fn is not None:
+            out = condition_score(cond_fn, sched, out, img, t)
+        eps = predict_eps_from_xstart(sched, img, t, out["pred_xstart"])
+        alpha_bar = _extract(sched.alphas_cumprod, t, img.ndim)
+        alpha_bar_prev = _extract(sched.alphas_cumprod_prev, t, img.ndim)
+        sigma = (
+            eta
+            * torch.sqrt((1 - alpha_bar_prev) / (1 - alpha_bar))
+            * torch.sqrt(1 - alpha_bar / alpha_bar_prev)
+        )
+        mean_pred = (
+            out["pred_xstart"] * torch.sqrt(alpha_bar_prev)
+            + torch.sqrt(1 - alpha_bar_prev - sigma**2) * eps
+        )
+        if eta > 0:
+            z = _randn(shape, generator, device) if step_noise is None else step_noise[i].to(device)
+            nonzero_mask = (t != 0).to(img.dtype).reshape((-1,) + (1,) * (img.ndim - 1))
+            mean_pred = mean_pred + nonzero_mask * sigma * z
+        img = mean_pred
+    return img
+
+
+def plms_sample_loop(
+    model_fn,
+    sched: DiffusionSchedule,
+    shape: tuple[int, ...],
+    *,
+    device: torch.device | str,
+    generator: torch.Generator | None = None,
+    noise: torch.Tensor | None = None,
+    clip_denoised: bool = False,
+    order: int = 2,
+) -> torch.Tensor:
+    """Pseudo linear multistep (PLMS), t = T-1 .. 0; deterministic given
+    `noise` (x_T). With order > 1 the first step is the improved-Euler pair
+    (a second model call at (mean_pred, max(t-1, 0)), the two eps
+    averaged); later steps blend the newest eps with up to order-1 earlier
+    ones (Adams-Bashforth); the last step (t = 0) returns the model's
+    pred_xstart. Every alpha_bar is looked up on `sched`'s own (respaced)
+    arrays; alpha_bar at t = -1 is 1."""
+    if not 1 <= order <= 4:
+        raise ValueError(f"PLMS order {order} not in 1..4")
+    _check_shape("noise", noise, shape)
+    img = _randn(shape, generator, device) if noise is None else noise.to(device)
+    ndim = len(shape)
+
+    def get_eps_x0(x, t):
+        out = p_mean_variance(model_fn, sched, x, t, clip_denoised=clip_denoised)
+        return predict_eps_from_xstart(sched, x, t, out["pred_xstart"]), out["pred_xstart"]
+
+    def ab_next_of(t_next):
+        ab = torch.where(t_next >= 0, sched.alphas_cumprod[torch.clamp_min(t_next, 0)],
+                         torch.ones((), dtype=torch.float32, device=t_next.device))
+        return ab.reshape((-1,) + (1,) * (ndim - 1))
+
+    eps_buf: list[torch.Tensor] = []  # earlier eps, newest first (at most 3)
+    for t_scalar in range(sched.num_timesteps - 1, -1, -1):
+        t = _full_t(t_scalar, shape[0], device)
+        t_next = t - 1
+        e0, pred_x0 = get_eps_x0(img, t)
+        ab_next = ab_next_of(t_next)
+        if order > 1 and not eps_buf:
+            mean_pred = pred_x0 * torch.sqrt(ab_next) + torch.sqrt(1 - ab_next) * e0
+            eps_2, _ = get_eps_x0(mean_pred, torch.clamp_min(t_next, 0))
+            eps_prime = (e0 + eps_2) / 2.0
+        else:
+            eff_order = min(len(eps_buf), order - 1)
+            if eff_order == 0:
+                eps_prime = e0
+            elif eff_order == 1:
+                eps_prime = (3 * e0 - eps_buf[0]) / 2
+            elif eff_order == 2:
+                eps_prime = (23 * e0 - 16 * eps_buf[0] + 5 * eps_buf[1]) / 12
+            else:
+                eps_prime = (55 * e0 - 59 * eps_buf[0] + 37 * eps_buf[1] - 9 * eps_buf[2]) / 24
+        # the deterministic DDIM transfer with eps_prime
+        x0 = predict_xstart_from_eps(sched, img, t, eps_prime)
+        img_next = x0 * torch.sqrt(ab_next) + torch.sqrt(1 - ab_next) * eps_prime
+        nonzero = (t != 0).to(img.dtype).reshape((-1,) + (1,) * (ndim - 1))
+        img = img_next * nonzero + pred_x0 * (1 - nonzero)
+        eps_buf = [e0] + eps_buf[:2]
+    return img
+
+
+def p_sample_loop_parallel(
+    model_fn,
+    sched: DiffusionSchedule,
+    shape: tuple[int, ...],
+    *,
+    device: torch.device | str,
+    generator: torch.Generator | None = None,
+    noise: torch.Tensor | None = None,
+    t_noise: torch.Tensor | None = None,
+    window: int = 32,
+    tol: float = 1e-2,
+    clip_denoised: bool = False,
+    denoised_fn=None,
+    cond_fn=None,
+    return_info: bool = False,
+):
+    """Picard-parallel ancestral sampling (ParaDiGMS, arXiv:2305.16317).
+
+    With the step noise pinned per timestep, the chain is a deterministic
+    map, solved over a sliding window of `window` steps (clamped to T) by
+    Picard iteration. Each sweep is ONE model call on [W*bs, ...]: the
+    window's states flattened window-major, each row with its own
+    timestep. `model_fn` must accept a batch that is a multiple of the
+    conditioning's and tile the conditioning the same way
+    (parallel/train.g_model_fn does). The new guesses are the integral form
+    buf[0] + cumsum(g(buf) - buf); the window slides past position s+1
+    (exact after every sweep) and each following position whose drift, the
+    per-element mean square change of the WORST sample of the batch, is at
+    most tol**2 * posterior_variance[t]. tol = 0 is the sequential chain.
+
+    `noise` is x_T; `t_noise` [T, *shape] holds the unit noise of timestep
+    t at index t (not in chain order). Without it each timestep's noise is
+    drawn from `generator` when the window first reaches it, so in chain
+    order. The exit test reads the slide on the host: one sync per sweep.
+
+    Returns the sample, or (sample, {"n_sweeps", "n_model_evals"}) (ints)
+    with return_info."""
+    T = sched.num_timesteps
+    W = min(int(window), T)
+    bs = shape[0]
+    _check_shape("noise", noise, shape)
+    _check_shape("t_noise", t_noise, (T,) + tuple(shape))
+    img = _randn(shape, generator, device) if noise is None else noise.to(device)
+    z_by_t: dict[int, torch.Tensor] = {}
+
+    def z_of(t_scalar: int) -> torch.Tensor:
+        if t_scalar not in z_by_t:
+            z_by_t[t_scalar] = (_randn(shape, generator, device) if t_noise is None
+                                else t_noise[t_scalar].to(device))
+        return z_by_t[t_scalar]
+
+    # position p in [0, T]: x after p reverse steps, whose next step uses
+    # timestep T-1-p. buf[j] is the current guess at position s+j; buf[0]
+    # is exact.
+    buf = img.unsqueeze(0).expand((W + 1,) + tuple(shape)).clone()
+    tol2 = torch.tensor(tol, dtype=torch.float32, device=device) ** 2
+    steps = torch.arange(W, device=device)
+    fill = torch.arange(W + 1, device=device)
+    rows = (W * bs,) + tuple(shape[1:])
+    s = sweeps = 0
+    while s < T:
+        ts_win = torch.clamp(T - 1 - (s + steps), 0, T - 1)
+        t_rows = ts_win.repeat_interleave(bs)
+        x = buf[:W].reshape(rows)
+        out = p_mean_variance(model_fn, sched, x, t_rows, clip_denoised=clip_denoised,
+                              denoised_fn=denoised_fn)
+        mean = out["mean"]
+        if cond_fn is not None:
+            mean = condition_mean(cond_fn, sched, out, x, t_rows)
+        z = torch.stack([z_of(max(T - 1 - s - j, 0)) for j in range(W)]).reshape(rows)
+        nz = (t_rows > 0).to(torch.float32).reshape((-1,) + (1,) * (len(shape) - 1))
+        y = (mean + nz * torch.exp(0.5 * out["log_variance"]) * z).reshape(buf[:W].shape)
+        new_vals = buf[0] + torch.cumsum(y - buf[:W], dim=0)  # positions s+1 .. s+W
+        drift = torch.square(new_vals - buf[1:]).reshape(W, bs, -1).mean(-1).amax(-1)
+        ok = drift <= tol2 * sched.posterior_variance[ts_win]
+        m = min(1 + int(torch.cumprod(ok[1:].to(torch.int32), 0).sum()), T - s)
+        buf = torch.cat([buf[:1], new_vals])[torch.clamp(fill + m, max=W)]
+        for t_done in range(T - 1 - s, T - 1 - s - m, -1):  # noise no step needs again
+            z_by_t.pop(t_done, None)
+        s += m
+        sweeps += 1
+    if return_info:
+        return buf[0], {"n_sweeps": sweeps, "n_model_evals": sweeps * W}
+    return buf[0]
+
+
+SAMPLERS = ("ddpm", "ddim", "plms", "parallel")
+
+
+def sample_loop(
+    sampler: str,
+    model_fn,
+    sched: DiffusionSchedule,
+    shape: tuple[int, ...],
+    *,
+    device: torch.device | str,
+    generator: torch.Generator | None = None,
+    noise: dict[str, torch.Tensor] | None = None,
+    parallel_window: int = 32,
+    parallel_tol: float = 1e-2,
+) -> torch.Tensor:
+    """The named sampler's chain with the TaMF settings (no clipping; DDIM
+    at eta 0, PLMS at order 2). `noise` holds the sampler's own noise
+    keywords, e.g. {"noise": x_T, "step_noise": ...} for "ddpm" or
+    {"noise": x_T, "t_noise": ...} for "parallel"."""
+    kw = dict(device=device, generator=generator, **(noise or {}))
+    if sampler == "ddpm":
+        return p_sample_loop(model_fn, sched, shape, **kw)
+    if sampler == "ddim":
+        return ddim_sample_loop(model_fn, sched, shape, **kw)
+    if sampler == "plms":
+        return plms_sample_loop(model_fn, sched, shape, **kw)
+    if sampler == "parallel":
+        return p_sample_loop_parallel(model_fn, sched, shape, window=parallel_window,
+                                      tol=parallel_tol, **kw)
+    raise ValueError(f"unknown sampler {sampler!r}: one of {SAMPLERS}")
 
 
 # ---------------------------------------------------------------------------

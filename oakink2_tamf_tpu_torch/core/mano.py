@@ -284,3 +284,38 @@ def hand_template_perm(v_template: np.ndarray) -> np.ndarray:
     if v.ndim == 3:
         v = v[0]
     return np.asarray(spatial_sort_indices(v, leaf=128), np.int64)
+
+
+def closed_faces(model: ManoModel) -> np.ndarray:
+    """The faces plus a fan sealing each boundary loop (the wrist), so the
+    mesh is watertight (JAX core/mano.py:363; manotorch's
+    get_mano_closed_faces, which the SIV metric reads). Host numpy: the
+    boundary edges (on exactly one face) are chained into loops, each
+    fanned from its first vertex with the winding reversed."""
+    faces = np.asarray(model.faces)
+    edges = np.concatenate([faces[:, [0, 1]], faces[:, [1, 2]], faces[:, [2, 0]]], axis=0)
+    key = np.sort(edges, axis=1)
+    _, inv, counts = np.unique(key, axis=0, return_inverse=True, return_counts=True)
+    boundary = edges[counts[inv.reshape(-1)] == 1]
+    if len(boundary) == 0:
+        return faces
+
+    succ = {int(a): int(b) for a, b in boundary}
+    new_faces = []
+    visited: set[int] = set()
+    for start in list(succ.keys()):
+        if start in visited:
+            continue
+        loop = [start]
+        visited.add(start)
+        cur = succ.get(start)
+        while cur is not None and cur != start and cur not in visited:
+            loop.append(cur)
+            visited.add(cur)
+            cur = succ.get(cur)
+        if len(loop) >= 3:
+            for i in range(1, len(loop) - 1):
+                new_faces.append((loop[0], loop[i + 1], loop[i]))
+    if not new_faces:
+        return faces
+    return np.concatenate([faces, np.asarray(new_faces, dtype=faces.dtype)], axis=0)

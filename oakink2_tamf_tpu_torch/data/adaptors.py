@@ -8,8 +8,10 @@ refiner R trains on:
   re-normalized (in PyTorch, on the CPU);
 - IdentitySampleAdaptor: GT passthrough.
 They perturb or copy before collate, so padded frames stay zero (the
-contract models/refine_r.sample_geometry relies on). The action-recognition
-adapter comes with the encoder.
+contract models/refine_r.sample_geometry relies on). `ACTION_LIST` is the
+JAX package's list of OakInk2 primitive actions (data/adaptors.py:22-41):
+69 names, though its comment and the synthetic label ids count 70. The
+action-recognition adapter comes with the encoder.
 """
 
 from __future__ import annotations
@@ -21,6 +23,27 @@ import numpy as np
 import torch
 
 from ..core import transforms as T
+
+ACTION_LIST = [
+    "cap", "scoop", "pour", "wipe", "spread", "grip", "scrape", "rearrange",
+    "press_button", "place_onto", "take_outside", "hold", "cut", "screw",
+    "assemble", "stir", "unscrew", "trigger_lever", "open_gate", "place_inside",
+    "close_gate", "uncap", "brush_whiteboard", "close_laptop_lid", "use_keyboard",
+    "remove_usb", "remove_power_plug", "plug_in_power_plug", "insert_usb",
+    "use_gamecontroller", "insert_lightbulb", "pull_out_drawer", "insert_pencil",
+    "sharpen_pencil", "remove_pencil", "write_on_paper", "remove_lid",
+    "put_on_lid", "shear_paper", "staple_paper_together", "remove_the_pen_cap",
+    "write_on_whiteboard", "cap_the_pen", "put_flower_into_vase",
+    "push_in_drawer", "remove_lightbulb", "open_laptop_lid", "open_book",
+    "use_mouse", "remove_from_test_tube_rack", "hold_test_tube",
+    "heat_test_tube", "place_test_tube_on_rack_with_holder", "pour_in_lab",
+    "place_on_test_tube_rack", "put_off_alcohol_lamp", "shake_lab_container",
+    "place_asbestos_mesh", "uncap_alcohol_lamp", "ignite_alcohol_lamp",
+    "heat_beaker", "stir_experiment_substances", "remove_test_tube", "swap",
+    "remove_test_tube_from_rack_with_holder", "flip_open_tooth_paste_cap",
+    "squeeze_tooth_paste", "flip_close_tooth_paste_cap", "close_book",
+]
+NUM_ACTIONS = len(ACTION_LIST)
 
 
 class GeneratedPoseReprSampleAdaptor:

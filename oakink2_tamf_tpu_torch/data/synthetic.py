@@ -14,6 +14,7 @@ from typing import Any
 import numpy as np
 
 from ..utils.pc_util import spatial_sort_indices
+from .adaptors import ACTION_LIST, NUM_ACTIONS
 
 
 def _random_rot6d(rng, shape):
@@ -74,9 +75,25 @@ def synthetic_batch(
     }
 
 
+# a box mesh per object, so mesh-consuming paths (the SIV metric) run
+_BOX_H = 0.04
+_BOX_VERTS = np.array(
+    [[-1, -1, -1], [1, -1, -1], [1, 1, -1], [-1, 1, -1],
+     [-1, -1, 1], [1, -1, 1], [1, 1, 1], [-1, 1, 1]], np.float32,
+) * np.float32(_BOX_H)
+_BOX_FACES = np.array(
+    [[0, 2, 1], [0, 3, 2], [4, 5, 6], [4, 6, 7], [0, 1, 5], [0, 5, 4],
+     [1, 2, 6], [1, 6, 5], [2, 3, 7], [2, 7, 6], [3, 0, 4], [3, 4, 7]],
+    np.int32,
+)
+
+
 class SyntheticSegments:
-    """Fixed per-index segments in the per-sample dict contract (the keys the
-    serving path reads), for runs without the OakInk2 data."""
+    """Fixed per-index segments in the per-sample dict contract, for runs
+    without the OakInk2 data. `info` is (process_key, "<action>:<index>",
+    "rh"), as the sample launchers key their outputs; the action cycles
+    over 70 ids as in the JAX package, whose ACTION_LIST holds 69 names
+    (it raises at id 69, which the port maps to the first name)."""
 
     def __init__(self, size: int, seq_len: int = 160, max_nobj: int = 2,
                  n_obj_points: int = 512, seed: int = 0):
@@ -97,14 +114,19 @@ class SyntheticSegments:
         )
         n_real = int(b["obj_mask"][0].sum())
         return {
+            "info": (f"synthetic/seq_{index}", f"{ACTION_LIST[index % 70 % NUM_ACTIONS]}:{index:04d}", "rh"),
+            "frame_id": list(range(int(b["len"][0]))),
             "len": int(b["len"][0]),
             "mask": b["mask"][0],
             "pose_repr": b["pose_repr"][0],
             "shape": b["shape"][0],
             "hand_side": "rh" if index % 2 == 0 else "lh",
             "text": f"synthetic task {index % 7}",
+            "obj_list": [f"obj_{j:02d}" for j in range(n_real)],
             "obj_num": n_real,
             "obj_traj": b["obj_traj"][0][:n_real],
             "obj_embedding": b["obj_embedding"][0][:n_real],
             "obj_pointcloud": b["obj_points"][0][:n_real],
+            "obj_verts": [_BOX_VERTS.copy() for _ in range(n_real)],
+            "obj_faces": [_BOX_FACES.copy() for _ in range(n_real)],
         }

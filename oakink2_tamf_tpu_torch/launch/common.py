@@ -1,6 +1,7 @@
 """Shared launcher plumbing (port of oakink2_tamf_tpu/launch/common.py:39-301):
 config boot, dataset and loader construction, CLIP text features, moving a
-batch to the device.
+batch to the device, the samplers' sharding and segment infos, and the
+activation a checkpoint must run under.
 
 The real-data dataset (data/segment.py) is not ported yet: `build_dataset`
 serves the synthetic segments and raises for anything else.
@@ -21,7 +22,7 @@ from ..data.loader import DataLoader
 from ..data.synthetic import SyntheticSegments
 from ..models.clip_text import FrozenClipText
 from ..runtime import logging as RL
-from ..runtime.ckpt import RunDir
+from ..runtime.ckpt import RunDir, read_model_state_dict
 from ..runtime.config import ConfigRegistry, sync_global_timestamp
 
 _logger = logging.getLogger(__name__)
@@ -118,6 +119,63 @@ def build_eval_loaders(reg: ConfigRegistry, wrap=None) -> dict[str, DataLoader]:
         else:
             _logger.warning("%s split is configured but EMPTY; no eval for it", split)
     return loaders
+
+
+def resolve_shard(sample_cfg) -> tuple[int, int]:
+    """(shard_index, num_shards) for the samplers: sample.num_shards /
+    sample.shard_index override; otherwise the torch.distributed world size
+    and rank when a process group is initialised, else (0, 1). An index out
+    of range raises (a clamped slice would drop segments silently)."""
+    dist = torch.distributed
+    live = dist.is_available() and dist.is_initialized()
+    W = int(sample_cfg.get("num_shards", 0) or 0) or (dist.get_world_size() if live else 1)
+    w = sample_cfg.get("shard_index", None)
+    w = (dist.get_rank() if live else 0) if w is None or int(w) < 0 else int(w)
+    if not 0 <= w < W:
+        raise ValueError(f"sample.shard_index {w} out of range for num_shards {W}")
+    return w, W
+
+
+def segment_infos(dataset) -> list[tuple]:
+    """Per-index segment info tuples without building the samples where
+    possible: follows `.base` down to a segment store with an aligned
+    `info_list` and `len_list` (an adaptor's own info_list is its sample
+    provenance and has no len_list); otherwise fetches each sample."""
+    n = len(dataset)
+    d = dataset
+    for _ in range(8):
+        info_l = getattr(d, "info_list", None)
+        if info_l is not None and hasattr(d, "len_list") and len(info_l) == n:
+            return [tuple(i) for i in info_l]
+        nxt = getattr(d, "base", None)
+        if nxt is None or len(nxt) != n:
+            break
+        d = nxt
+    return [tuple(dataset[i]["info"]) for i in range(n)]
+
+
+PORT_ACTIVATION = "gelu_exact"  # torch's F.gelu, the reference trunk's activation
+
+
+def activation_for_checkpoint(reg, filepath) -> str | None:
+    """The activation a net must be built with to run the weights in
+    `filepath`, or None for the config's `model.activation`. The file's
+    content decides: a bare state_dict is a reference checkpoint, trained
+    under torch's exact-erf GELU, so "gelu_exact" (with a warning when the
+    config says otherwise); the port's own {step, model, optimizer}
+    checkpoint was trained under the config's activation."""
+    if not filepath:
+        return None
+    _, own = read_model_state_dict(filepath)
+    if own:
+        return None
+    cfg = str(reg.select("model").get("activation", "gelu"))
+    if cfg != PORT_ACTIVATION:
+        _logger.warning(
+            "reference checkpoint %s: forcing activation=%s (config had %r): the "
+            "reference's F.gelu is the exact erf form", filepath, PORT_ACTIVATION, cfg,
+        )
+    return PORT_ACTIVATION
 
 
 def build_clip(reg: ConfigRegistry, device: torch.device) -> FrozenClipText:

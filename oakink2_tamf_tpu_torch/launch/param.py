@@ -142,9 +142,10 @@ def reg_sample_param(reg: ConfigRegistry) -> None:
                       "0 = bit-equivalent to the sequential pinned-noise chain")
     reg.register("save_prefix", prefix="sample", category=str, default="")
     reg.register("num_shards", prefix="sample", category=int, default=0,
-                 desc="0 = one shard; explicit for external launchers")
+                 desc="0 = the torch.distributed world size when a process group is "
+                      "initialised, else one shard; explicit for external launchers")
     reg.register("shard_index", prefix="sample", category=int, default=-1,
-                 desc="-1 = shard 0")
+                 desc="-1 = the torch.distributed rank when initialised, else 0")
 
 
 def reg_refine_sample_param(reg: ConfigRegistry) -> None:

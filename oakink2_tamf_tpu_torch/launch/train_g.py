@@ -66,29 +66,24 @@ def build_model(reg, activation: str | None = None) -> InteractionSegmentMDM:
 
 
 @torch.no_grad()
-def evaluate_g(model, sched, mano_stack, assets, extra_cfg, loader, clip, device,
+def evaluate_g(sample_fn, model, mano_stack, assets, extra_cfg, loader, clip, device,
                generator: torch.Generator, max_batches: int = 0) -> dict[str, float]:
     """val/test pass (reference launch/train.py:577-656): sample G on held-out
-    segments with the DDPM chain, then report the masked MSE against the GT
-    and the geometric extra loss terms of the samples. max_batches=0 runs
-    the whole split."""
-    was_training = model.training
-    model.eval()
+    segments with `sample_fn` (parallel/train.make_g_sampler), then report
+    the masked MSE against the GT and the geometric extra loss terms of the
+    samples. max_batches=0 runs the whole split."""
     acc: dict[str, list] = {}
     for n, batch in enumerate(loader):
         if max_batches and n >= max_batches:
             break
         db = common.device_batch(common.attach_text_emb(batch, clip), device)
-        cond = PT.g_cond_from_batch(db)
-        sample = D.p_sample_loop(lambda x, t: model(x, t, cond), sched, tuple(db["pose_repr"].shape),
-                                 device=device, generator=generator)
+        sample = sample_fn(model, db, generator)
         acc.setdefault("sample_mse", []).append(
             float(D.masked_l2(db["pose_repr"], sample, db["mask"]).mean())
         )
         _, terms = LL.interaction_segment_extra_loss(mano_stack, assets, extra_cfg, sample, db)
         for k, v in terms.items():
             acc.setdefault(k, []).append(float(v))
-    model.train(was_training)
     return {k: float(np.mean(v)) for k, v in acc.items()}
 
 
@@ -190,6 +185,7 @@ def main(argv=None) -> PT.TrainState:
     host_generator = torch.Generator().manual_seed(seed + 1)  # importance resampler
     val_freq = int(train_cfg.get("val_freq", 0) or 0)
     eval_loaders = common.build_eval_loaders(reg) if val_freq else {}
+    eval_sampler = PT.make_g_sampler(sched)  # DDPM, as the JAX launcher's eval pass
 
     num_epoch = int(train_cfg.get("num_epoch", 400))
     record_freq = int(train_cfg.get("record_freq", 20))
@@ -227,7 +223,7 @@ def main(argv=None) -> PT.TrainState:
         if val_freq and (epoch_id == 0 or (epoch_id + 1) % val_freq == 0 or epoch_id == num_epoch - 1):
             for split, loader in eval_loaders.items():
                 terms = evaluate_g(
-                    model, sched, mano_stack, assets, extra_cfg, loader, clip, device, generator,
+                    eval_sampler, model, mano_stack, assets, extra_cfg, loader, clip, device, generator,
                     max_batches=int(train_cfg.get("eval_max_batches", 0) or 0),
                 )
                 _logger.info("%s epoch %04d sample eval | %s", split, epoch_id,

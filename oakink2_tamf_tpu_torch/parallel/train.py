@@ -1,4 +1,4 @@
-"""The G and R train steps and their optimizer (port of
+"""The G and R train steps, their optimizer and the G sampler (port of
 oakink2_tamf_tpu/parallel/train.py:39-332), on one device for now.
 
 Optimizer parity (reference launch/train.py:469-479, util/net_util.py:13):
@@ -112,6 +112,59 @@ class TrainState:
 
 def g_cond_from_batch(batch: dict[str, Any]) -> dict[str, Any]:
     return {k: batch[k] for k in ("text_emb", "hand_side", "shape", "obj_traj", "obj_embedding", "obj_mask")}
+
+
+def g_model_fn(model: torch.nn.Module, cond: dict[str, torch.Tensor]) -> Callable:
+    """model_fn(x, t) for the samplers: G under the batch's conditioning. An
+    x of k times the conditioning's batch (the parallel sampler's window,
+    flattened window-major) sees the conditioning tiled k times in that
+    order."""
+    bs = cond["hand_side"].shape[0]
+
+    def fn(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        reps = x.shape[0] // bs
+        c = cond if reps == 1 else {k: v.repeat((reps,) + (1,) * (v.ndim - 1)) for k, v in cond.items()}
+        return model(x, t, c)
+
+    return fn
+
+
+def make_g_sampler(
+    sched: D.DiffusionSchedule,
+    *,
+    sampler: str = "ddpm",
+    parallel_window: int = 64,
+    parallel_tol: float = 1e-2,
+) -> Callable[..., torch.Tensor]:
+    """The batched G sampler (JAX make_g_sampler, parallel/train.py:227):
+    `sampler` is "ddpm", "ddim", "plms" or "parallel" (the Picard-window
+    chain, for small batches: `parallel_window` steps per model call,
+    slide tolerance `parallel_tol`); an unknown name raises ValueError.
+
+    sample_fn(model, batch, generator, noise=None) -> [bs, L, 99] runs the
+    chain under torch.inference_mode() with dropout off, on the batch's
+    device. `noise` holds the sampler's noise keywords (core/diffusion.py:
+    "noise" = x_T, "step_noise" in chain order, "t_noise" by timestep);
+    what it lacks is drawn from `generator`."""
+    if sampler not in D.SAMPLERS:
+        raise ValueError(f"unknown sampler {sampler!r}: one of {D.SAMPLERS}")
+
+    @torch.inference_mode()
+    def sample_fn(model: torch.nn.Module, batch: dict[str, Any], generator: torch.Generator | None,
+                  noise: dict[str, torch.Tensor] | None = None) -> torch.Tensor:
+        was_training = model.training
+        model.eval()
+        try:
+            x = batch["pose_repr"]
+            return D.sample_loop(
+                sampler, g_model_fn(model, g_cond_from_batch(batch)), sched, tuple(x.shape),
+                device=x.device, generator=generator, noise=noise,
+                parallel_window=parallel_window, parallel_tol=parallel_tol,
+            )
+        finally:
+            model.train(was_training)
+
+    return sample_fn
 
 
 def make_g_train_step(

@@ -8,7 +8,8 @@ dry-run flag: nothing is written unless --commit is passed.
 Checkpoints are `torch.save` files of {step, model, optimizer}: the model's
 state_dict in the reference key layout, the AdamW and MultiStepLR states.
 Unlike the reference, the step counter is saved, so a resumed run keeps its
-learning-rate schedule.
+learning-rate schedule. A reference checkpoint is a bare state_dict in the
+same key layout; `read_model_state_dict` tells the two apart by content.
 """
 
 from __future__ import annotations
@@ -120,3 +121,30 @@ def load_checkpoint(path: str, state, strict: bool = False):
     elif strict:
         raise KeyError(f"strict load: {path} has no optimizer state")
     return state
+
+
+def read_model_state_dict(path: str) -> tuple[dict[str, Any], bool]:
+    """(model state_dict, whether the file is one of this package's train
+    checkpoints). A dict with a "model" entry is the port's own
+    {step, model, optimizer}; anything else is a reference checkpoint: a
+    bare state_dict (or a pickled module), DDP's "module." prefix
+    stripped."""
+    ck = torch.load(path, map_location="cpu", weights_only=False)
+    own = isinstance(ck, dict) and "model" in ck
+    sd = ck["model"] if own else ck
+    if not isinstance(sd, dict):
+        sd = sd.state_dict()
+    return {k.removeprefix("module."): v for k, v in sd.items()}, own
+
+
+def load_model_weights(module: torch.nn.Module, path: str) -> None:
+    """Load a model's weights from `path` (a port train checkpoint or a
+    reference state_dict) into `module`; keys the module does not have
+    (e.g. the reference's clip_model.*) are ignored, a key the module needs
+    but the file lacks raises."""
+    sd, _ = read_model_state_dict(path)
+    own = module.state_dict()
+    missing = sorted(set(own) - set(sd))
+    if missing:
+        raise KeyError(f"{path} lacks {len(missing)} keys, e.g. {missing[:3]}")
+    module.load_state_dict({k: sd[k] for k in own})

@@ -1,15 +1,17 @@
 """TamfPipeline: the G -> R serving path on one GPU (port of
-oakink2_tamf_tpu/serving.py, DDPM sampler).
+oakink2_tamf_tpu/serving.py).
 
     pipe = TamfPipeline.load(g_ckpt, r_ckpt, mano_path=..., clip_ckpt=...)
     results = pipe.generate(segments)   # one dict of numpy arrays per segment
 
 Requests pad up to `batch_size` (the last segment repeats), CLIP text
-features are cached per prompt, G's chain runs on the device, G's output is
-zeroed past each segment's true length before R (R only ever sees
-zero-padded samples in the reference), and R runs with the batch mask as
-its frame mask. Checkpoints are torch state_dicts in the reference key
-layout. The whole call runs under torch.inference_mode().
+features are cached per prompt, G's chain runs on the device with the
+pipeline's `sampler` ("ddpm", "ddim", "plms", or "parallel": Picard windows
+of `parallel_window` steps at tolerance `parallel_tol`, for small batches),
+G's output is zeroed past each segment's true length before R, and R runs
+with the batch mask as its frame mask. Checkpoints are reference
+state_dicts or the port's own train checkpoints (runtime/ckpt.py). The
+whole call runs under torch.inference_mode().
 """
 
 from __future__ import annotations
@@ -27,26 +29,13 @@ from .data.collate import SegmentCollate
 from .models.clip_text import FrozenClipText
 from .models.mdm_g import InteractionSegmentMDM, MDMConfig
 from .models.refine_r import RefineConfig, SegmentRefineNet, refine_forward, stack_mano_models
+from .parallel.train import g_cond_from_batch, g_model_fn
+from .runtime.ckpt import load_model_weights
 
 BATCH_KEYS = (
     "pose_repr", "mask", "shape", "hand_side",
     "obj_traj", "obj_embedding", "obj_mask", "obj_points",
 )
-
-
-def load_state_dict_file(module: torch.nn.Module, path: str) -> None:
-    """Load a reference-layout torch state_dict file into `module`; keys the
-    module does not have (e.g. the reference's clip_model.*) are ignored, a
-    key the module needs but the file lacks raises."""
-    sd = torch.load(path, map_location="cpu", weights_only=False)
-    if not isinstance(sd, dict):
-        sd = sd.state_dict()
-    own = module.state_dict()
-    sd = {k.removeprefix("module."): v for k, v in sd.items()}
-    missing = sorted(set(own) - set(sd))
-    if missing:
-        raise KeyError(f"{path} lacks {len(missing)} keys, e.g. {missing[:3]}")
-    module.load_state_dict({k: sd[k] for k in own})
 
 
 @dataclasses.dataclass
@@ -61,8 +50,13 @@ class TamfPipeline:
     seq_len: int = 160
     max_nobj: int = 4
     n_obj_points: int = 2048
+    sampler: str = "ddpm"
+    parallel_window: int = 64
+    parallel_tol: float = 1e-2
 
     def __post_init__(self):
+        if self.sampler not in D.SAMPLERS:
+            raise ValueError(f"unknown sampler {self.sampler!r}: one of {D.SAMPLERS}")
         self._collate = SegmentCollate(max_nobj=self.max_nobj, n_obj_points=self.n_obj_points)
 
     @classmethod
@@ -91,9 +85,9 @@ class TamfPipeline:
             torch.manual_seed(seed + 1)
             refine_net = SegmentRefineNet(r_config)
         if g_ckpt:
-            load_state_dict_file(g_model, g_ckpt)
+            load_model_weights(g_model, g_ckpt)
         if r_ckpt:
-            load_state_dict_file(refine_net, r_ckpt)
+            load_model_weights(refine_net, r_ckpt)
         for m in (g_model, refine_net):
             m.to(dev).eval().requires_grad_(False)
         return cls(
@@ -108,12 +102,12 @@ class TamfPipeline:
             **kwargs,
         )
 
-    def _run(self, batch: dict[str, torch.Tensor], generator, noise, step_noise):
-        cond = {k: batch[k] for k in ("text_emb", "hand_side", "shape", "obj_traj", "obj_embedding", "obj_mask")}
+    def _run(self, batch: dict[str, torch.Tensor], generator, noise):
         bs, L = batch["pose_repr"].shape[:2]
-        sample = D.p_sample_loop(
-            lambda x, t: self.g_model(x, t, cond), self.sched, (bs, L, 99),
-            device=self.device, generator=generator, noise=noise, step_noise=step_noise,
+        sample = D.sample_loop(
+            self.sampler, g_model_fn(self.g_model, g_cond_from_batch(batch)), self.sched, (bs, L, 99),
+            device=self.device, generator=generator, noise=noise,
+            parallel_window=self.parallel_window, parallel_tol=self.parallel_tol,
         )
         b2 = dict(batch)
         # R sees G's sample zero-padded past each true length, as the JAX
@@ -141,15 +135,17 @@ class TamfPipeline:
         self,
         segments: Sequence[dict[str, Any]],
         generator: torch.Generator | None = None,
-        noise: Sequence[tuple[torch.Tensor, torch.Tensor]] | None = None,
+        noise: Sequence[dict[str, torch.Tensor]] | None = None,
     ) -> list[dict[str, np.ndarray]]:
         """Run G -> R on per-segment sample dicts. Returns per segment
         refine_pose_repr [L, 99], verts [L, 778, 3], joints [L, 21, 3] and
         g_sample_pose_repr [L, 99].
 
         Noise comes from `generator` (a device generator seeded 0 when None),
-        or, per batch of `batch_size` segments, from `noise[i]` = (x_T
-        [bs, L, 99], per-step noise [T, bs, L, 99])."""
+        or, per batch of `batch_size` segments, from `noise[i]`: a dict of
+        the sampler's noise keywords (core/diffusion.py: "noise" = x_T
+        [bs, L, 99]; "step_noise" [T, bs, L, 99] in chain order for ddpm;
+        "t_noise" [T, bs, L, 99] by timestep for parallel)."""
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         results: list[dict[str, np.ndarray]] = []
@@ -157,8 +153,7 @@ class TamfPipeline:
             chunk = list(segments[start : start + self.batch_size])
             n_real = len(chunk)
             chunk += [chunk[-1]] * (self.batch_size - n_real)  # pad to the batch shape
-            x_t, steps = noise[ci] if noise is not None else (None, None)
-            out = self._run(self._device_batch(chunk), generator, x_t, steps)
+            out = self._run(self._device_batch(chunk), generator, noise[ci] if noise is not None else None)
             out = {k: v.float().cpu().numpy() for k, v in out.items()}
             for i in range(n_real):
                 results.append({

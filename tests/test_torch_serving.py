@@ -58,7 +58,7 @@ def _jax_noise(key, n_chunks, shape):
         x_t = np.asarray(jax.random.normal(k_init, shape, jnp.float32))
         steps = np.stack([np.asarray(jax.random.normal(kk, shape, jnp.float32))
                           for kk in jax.random.split(k, STEPS)])
-        out.append((torch.from_numpy(x_t.copy()), torch.from_numpy(steps)))
+        out.append({"noise": torch.from_numpy(x_t.copy()), "step_noise": torch.from_numpy(steps)})
     return out
 
 
