@@ -140,7 +140,25 @@ Phases (any failure exits non-zero and prints no result line):
 21. the sample launchers: launch/sample_g.main (16 .npy) and then
    launch/sample_r.main on those samples (16 save_dict.pkl) on the smoke
    config with --commit in a temporary directory; the weights, batches and
-   outputs on the card, #1 launched.
+   outputs on the card, #1 launched; then eval/compute_score.main cr,
+   psklj, fid and siv on those save_dicts on the card (CR: #1 twice per
+   segment);
+22. the scoring chain on real-format data: a fabricated cache_dict of 64
+   segments x 160 frames over 4 objects of 8192 points with 768-d
+   embeddings and box meshes (data/fabricate.py) through
+   launch/common.build_dataset (host segments/s);
+   launch/train_encoder.main at arch_encoder.yml widths, batch 64, 1
+   warm-up and 3 timed steps (s/step, samples/s, peak GiB); compute_score
+   cr, psklj and fid on an identity and a perturbed save_dict tree, siv on
+   8 of the perturbed tree's segments at resolution 100, stride 20 (a
+   depth cut: ~2 s of host hashing per containment test of the synthetic
+   hand): wall s and segments/s per score, #1 twice per segment on the CR
+   path, min_cdist against torch.cdist + min and #1's plain version on one
+   segment; #1's and the yardstick's per-frame squared minima against a
+   float64 witness on every segment's GT and refined hands (1e-7 and 1e-6
+   m^2, no frame on the other side of 5 mm); CR's squared minima GPU vs
+   CPU within 1e-7 m^2, the FID activations within 1e-4, the triangle hash
+   built from the port's own source.
 
 The line before the last is the card's name and power limit
 (nvidia-smi); before it, one JSON line with every kernel's numbers. The
@@ -3305,18 +3323,22 @@ def sampler_main_path():
     return counts["h2o_cull"], stats
 
 
-def sample_entry_points() -> int:
+def sample_entry_points() -> tuple[int, int]:
     """launch/sample_g.main then launch/sample_r.main on the synthetic smoke
     config on the card, with --commit, in a temporary directory: 16 .npy
     samples, then 16 save_dict.pkl refined from them (128-point clouds:
     #1). The G and R weights, the batches and the outputs must sit on the
-    card. Returns #1's launches."""
+    card. Then eval/compute_score.main cr, psklj, fid and siv (one frame per
+    segment, resolution 32) on those save_dicts, on the card: CR must launch
+    #1 twice per segment. Returns #1's launches in sample_r and in the
+    compute_score chain."""
     import pickle
     import tempfile
 
     import numpy as np
     import torch
 
+    from oakink2_tamf_tpu_torch.eval import compute_score
     from oakink2_tamf_tpu_torch.launch import sample_g, sample_r
     from oakink2_tamf_tpu_torch.ops import chamfer_cull as CU
     from oakink2_tamf_tpu_torch.ops import chamfer_nn as NN
@@ -3364,10 +3386,20 @@ def sample_entry_points() -> int:
             for p in pkls:
                 with open(p, "rb") as f:
                     dicts.append(pickle.load(f))
+            counts = {"h2o_nn": NN.KERNEL.launches, "h2o_cull": CU.KERNEL.launches}
+            NN.KERNEL.launches = 0
+            scores = {}
+            for which in ("cr", "psklj", "fid", "siv"):
+                t0 = time.perf_counter()
+                n0 = NN.KERNEL.launches
+                scores[which] = compute_score.main([which, "--cfg", cfg, "--score.sample_dir", out_root,
+                                                    "--score.frame_stride", "32", "--score.sdf_resolution", "32"])
+                scores[which]["wall_s"] = time.perf_counter() - t0
+                scores[which]["h2o_nn_launches"] = NN.KERNEL.launches - n0
+            score_nn = NN.KERNEL.launches
         finally:
             PT.make_g_sampler, sample_r.refine_forward = make_g_sampler, refine_forward
             os.chdir(cwd)
-    counts = {"h2o_nn": NN.KERNEL.launches, "h2o_cull": CU.KERNEL.launches}
     require(files == [f"{i:06d}.npy" for i in range(16)], f"sample_g wrote {files}")
     require(all(a.shape == (32, 99) and np.isfinite(a).all() for a in arrays), "sample_g: bad samples")
     require(len(dicts) == 16, f"sample_r wrote {len(dicts)} save_dict.pkl")
@@ -3381,8 +3413,287 @@ def sample_entry_points() -> int:
     print(f"sample_g.main (synthetic_smoke.yml, cuda, --commit): {len(files)} samples in {t_g:.2f} s; "
           f"sample_r.main on them: {len(dicts)} save_dict.pkl in {t_r:.2f} s; G and R calls on the card "
           f"{len(seen)}; launches {counts}", flush=True)
+    require(all(np.isfinite(v) for r in scores.values() for v in r.values()), f"compute_score: {scores}")
+    require(scores["cr"]["h2o_nn_launches"] == 2 * len(dicts) and scores["siv"]["n_frames"] > 0,
+            f"compute_score on sample_r's output: {scores}")
+    print(f"compute_score.main on sample_r's {len(dicts)} save_dicts (cuda): " + json.dumps(scores), flush=True)
     torch.cuda.synchronize()
-    return counts["h2o_nn"]
+    return counts["h2o_nn"], score_nn
+
+
+# the scoring stage: real-format data at full width (fabricated), the FID
+# encoder's training and compute_score; SIV on the first SCORE_SIV_SEGMENTS
+# segments only (a depth cut: each containment test of the synthetic hand
+# spends ~2 s hashing its large triangles on the host)
+SCORE_SEGMENTS, SCORE_L, SCORE_OBJ, SCORE_P, SCORE_EMB = 64, 160, 4, 8192, 768
+SCORE_OBJS_PER_SEGMENT, SCORE_SIV_SEGMENTS, SCORE_SIGMA, SCORE_ENC_BS = 2, 8, 0.05, 64
+
+
+def card_line() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+
+
+def scoring_path(dev: str = "cuda"):
+    """The scoring chain on real-format data: a fabricated cache_dict pickle
+    (SCORE_SEGMENTS segments x SCORE_L frames over SCORE_OBJ objects of
+    SCORE_P points, SCORE_EMB-d embeddings, each segment holding
+    SCORE_OBJS_PER_SEGMENT objects) and the box toolkit's meshes, through
+    launch/common.build_dataset (dataset + collate segments/s on the host);
+    launch/train_encoder.main at arch_encoder.yml widths, batch SCORE_ENC_BS
+    (64), two epochs of 2 steps over the identity and perturbed views: 1
+    warm-up and 3 timed steps (s/step, samples/s, peak GiB), its checkpoint
+    written; compute_score cr, psklj and fid on an identity and a perturbed
+    save_dict tree, siv on SCORE_SIV_SEGMENTS segments of the perturbed one
+    (resolution 100, stride 20): wall s and segments/s per score, #1's
+    launches on the CR path (2 per segment) and min_cdist's time per segment
+    beside torch.cdist + min on the same operands. Checks: #1's per-frame
+    squared minima equal its plain version's on the card within 1e-7 m^2 on
+    the timed segment; on every segment's GT and refined hands they equal a
+    float64 witness within 1e-7 m^2 (the library yardstick's within 1e-6) and
+    no frame changes side of CR's 5 mm; CR's squared minima on the card equal
+    the CPU plain route's within 1e-7 m^2 on a subset, the FID activations
+    within 1e-4, the scores finite, the triangle
+    hash built from the port's own source. Returns (#1's CR launches, stats)."""
+    import argparse
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from oakink2_tamf_tpu_torch import native
+    from oakink2_tamf_tpu_torch.core import geometry as G
+    from oakink2_tamf_tpu_torch.core import mano as M
+    from oakink2_tamf_tpu_torch.data import fabricate as F
+    from oakink2_tamf_tpu_torch.data.collate import SegmentCollate
+    from oakink2_tamf_tpu_torch.eval import compute_score as CSC
+    from oakink2_tamf_tpu_torch.eval import metrics as ME
+    from oakink2_tamf_tpu_torch.launch import common, param, train_encoder
+    from oakink2_tamf_tpu_torch.models.refine_r import stack_mano_models
+    from oakink2_tamf_tpu_torch.ops import chamfer_nn as NN
+    from oakink2_tamf_tpu_torch.parallel import train as PT
+    from oakink2_tamf_tpu_torch.runtime.config import ConfigRegistry
+    from oakink2_tamf_tpu_torch.runtime.ckpt import load_model_weights
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    card = card_line()
+    stats: dict = {"card": card}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            # 1. the data, through build_dataset's real branch
+            t0 = time.perf_counter()
+            paths = F.write_dataset(tmp, SCORE_SEGMENTS, seq_len=SCORE_L, n_obj=SCORE_OBJ, n_points=SCORE_P,
+                                    emb_dim=SCORE_EMB, objs_per_seg=SCORE_OBJS_PER_SEGMENT, seed=0)
+            t_write = time.perf_counter() - t0
+            data_argv = ["--data.synthetic", "false", "--data.enable_obj_model", "true",
+                         "--data.max_nobj", str(SCORE_OBJ), "--data.n_obj_points", str(SCORE_P),
+                         "--data.obj_embedding_prefix", paths["obj_embedding_prefix"],
+                         "--data.obj_pointcloud_prefix", paths["obj_pointcloud_prefix"],
+                         "--train.cache_dict_filepath", paths["cache_dict"],
+                         "--test.cache_dict_filepath", paths["cache_dict"]]
+            reg = ConfigRegistry("chip_smoke_score")
+            for fn in (param.reg_base_param, param.reg_mano_param, param.reg_model_param, CSC.reg_score_param):
+                fn(reg)
+            parser = argparse.ArgumentParser()
+            reg.hook(parser)
+            reg.parse(parser, ["--cfg", os.path.join(repo, "config/arch_encoder.yml"), *data_argv,
+                               "--score.sdf_resolution", "100", "--score.frame_stride", "20"])
+            toolkit = F.BoxToolkit()
+            t0 = time.perf_counter()
+            dataset = common.build_dataset(reg, "test", toolkit=toolkit)
+            samples = [dataset[i] for i in range(len(dataset))]
+            collate = SegmentCollate(max_nobj=SCORE_OBJ, n_obj_points=SCORE_P)
+            batches = [collate(samples[i : i + 16]) for i in range(0, len(samples), 16)]
+            t_data = time.perf_counter() - t0
+            require(len(dataset) == SCORE_SEGMENTS and all(len(s["obj_verts"]) == s["obj_num"] for s in samples),
+                    "build_dataset: segments or meshes missing")
+            require(batches[0]["obj_points"].shape == (min(16, SCORE_SEGMENTS), SCORE_OBJ, SCORE_P, 3),
+                    "collate: bad obj_points")
+            stats["data"] = {"write_s": t_write, "load_collate_s": t_data,
+                             "segments_per_s": SCORE_SEGMENTS / t_data}
+            print(f"real-format data: {SCORE_SEGMENTS} segments x {SCORE_L} frames, {SCORE_OBJ} objects x "
+                  f"{SCORE_P} points, {SCORE_EMB}-d embeddings written in {t_write:.2f} s; build_dataset + every "
+                  f"sample + collate (batches of 16) on the host {t_data:.3f} s = {SCORE_SEGMENTS / t_data:.2f} "
+                  f"segments/s ({card})", flush=True)
+
+            # 2. the FID encoder's training, its checkpoint kept for FID
+            step_s, seen = [], []
+            make_step = PT.make_encoder_train_step
+
+            def timed_step_factory():
+                fn = make_step()
+
+                def step(state, batch):
+                    if dev == "cuda":
+                        torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    out = fn(state, batch)
+                    if dev == "cuda":
+                        torch.cuda.synchronize()
+                    step_s.append(time.perf_counter() - t)
+                    seen.append((next(state.model.parameters()).device.type, batch["pose_repr"].device.type,
+                                 int(batch["pose_repr"].shape[0])))
+                    return out
+
+                return step
+
+            if dev == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            PT.make_encoder_train_step = timed_step_factory
+            try:
+                t0 = time.perf_counter()
+                state = train_encoder.main(["--cfg", os.path.join(repo, "config/arch_encoder.yml"), *data_argv,
+                                            "--runtime.device", dev, "--train.batch_size", str(SCORE_ENC_BS),
+                                            "--train.num_epoch", "2", "--train.val_freq", "0",
+                                            "--exp_id", "chip_smoke_enc", "--commit"])
+                t_main = time.perf_counter() - t0
+            finally:
+                PT.make_encoder_train_step = make_step
+            peak = torch.cuda.max_memory_allocated() / 2**30 if dev == "cuda" else float("nan")
+            require(state.step == 4 and len(step_s) == 4, f"train_encoder.main took {state.step} steps, expected 4")
+            require(all(v == (dev, dev, SCORE_ENC_BS) for v in seen), f"encoder steps off the card: {seen}")
+            require(all(torch.isfinite(p).all() for p in state.model.parameters())
+                    and not state.model.classification_token.any(), "train_encoder: non-finite or moved token")
+            timed = float(np.mean(step_s[1:]))
+            stats["encoder_train"] = {"s_per_step": timed, "samples_per_s": SCORE_ENC_BS / timed,
+                                      "warmup_s": step_s[0], "peak_gib": peak, "main_s": t_main}
+            print(f"train_encoder.main (arch_encoder.yml, batch {SCORE_ENC_BS}, {dev}): warm-up step {step_s[0]:.4f} s, "
+                  f"3 timed steps {timed:.4f} s/step = {SCORE_ENC_BS / timed:.1f} samples/s, peak {peak:.3f} GiB; "
+                  f"main {t_main:.2f} s ({card})", flush=True)
+            ckpt = os.path.join(tmp, "common/train_encoder/chip_smoke_enc/save/model_0001.pt")
+            require(os.path.isfile(ckpt), "train_encoder.main wrote no checkpoint")
+            reg.values["score.encoder_filepath"] = ckpt
+
+            # 3. the save_dict trees and the scores
+            mano_rh, mano_lh = M.get_mano_model(None, "right"), M.get_mano_model(None, "left")
+            mano = stack_mano_models(mano_rh, mano_lh, dev)
+            faces = {0: M.closed_faces(mano_rh), 1: M.closed_faces(mano_lh)}
+            trees = {k: CSC.load_save_dicts(F.write_save_dicts(os.path.join(tmp, k), samples, mano, faces,
+                                                               sigma=sig, seed=1))
+                     for k, sig in (("identity", 0.0), ("perturbed", SCORE_SIGMA))}
+            scores: dict = {}
+            cr_launches = 0
+            for tree, sds in trees.items():
+                for which in ("cr", "psklj", "fid", "siv"):
+                    if which == "siv" and tree == "identity":
+                        continue
+                    sub = sds if which != "siv" else {k: sds[k] for k in sorted(sds)[:SCORE_SIV_SEGMENTS]}
+                    NN.KERNEL.launches = 0
+                    if dev == "cuda":
+                        torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    res = CSC.RUNNERS[which](reg, dataset, sub, mano)
+                    if dev == "cuda":
+                        torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    n1 = NN.KERNEL.launches
+                    if which == "cr":
+                        require(dev != "cuda" or n1 == 2 * len(sub), f"CR on {tree}: #1 launched {n1} times "
+                                f"for {len(sub)} segments")
+                        if tree == "perturbed":
+                            cr_launches = n1
+                    require(all(np.isfinite(v) for v in res.values()), f"{which} on {tree}: {res}")
+                    scores[f"{which}/{tree}"] = {**res, "wall_s": wall, "segments": len(sub),
+                                                 "segments_per_s": len(sub) / wall, "h2o_nn_launches": n1}
+                    print(f"compute_score {which} ({tree} tree, {len(sub)} segments): {res}; {wall:.3f} s = "
+                          f"{len(sub) / wall:.2f} segments/s; #1 launches {n1} ({card})", flush=True)
+            idn = scores["cr/identity"]
+            require(idn["gt_contact_ratio"] == idn["refined_contact_ratio"], f"CR identity: {idn}")
+            require(abs(scores["fid/identity"]["fid"]) < 1e-3, f"FID identity: {scores['fid/identity']}")
+            require(scores["siv/perturbed"]["n_frames"] > 0, "SIV scored no frame")
+            stats["scores"] = scores
+            stats["cr_h2o_nn_launches"] = cr_launches
+
+            # 4. min_cdist against torch.cdist + min on one segment's operands;
+            # #1's per-frame d^2 held against its plain version's on the card
+            s = samples[int(np.argmax([x["len"] for x in samples]))]
+            n = int(s["len"])
+            merged = ME.transf_merge_obj_pointcloud(s["obj_pointcloud"], s["obj_traj"][:, :n], dev)
+            hv = torch.as_tensor(CSC.gt_hand_geometry(mano, s)[0][:n], device=dev)
+            if dev == "cuda":
+                ms = cuda_time_ms(lambda: G.min_cdist(hv, merged), reps=10)
+                lib_ms = cuda_time_ms(lambda: library_min(hv, merged).amin(-1), reps=3)
+                plain_d2, plain_ms = cuda_timed(lambda: NN.plain(*NN.prepare(hv, merged, None, 1), 1)[0].amin(1))
+                plain_err = float((NN.h2o_nn(hv, merged, None, 1)[0].amin(1) - plain_d2).abs().max())
+                require(plain_err <= 1e-7, f"CR min_cdist: #1's per-frame d^2 differs from its plain version's by "
+                        f"{plain_err} m^2 on the timed segment")
+                lib_err = float((library_min(hv, merged).amin(-1) - G.min_cdist(hv, merged)).abs().max())
+            else:
+                ms = lib_ms = plain_ms = plain_err = lib_err = float("nan")
+            n_bytes = (hv.numel() + merged.numel() + n) * 4
+            bound, by = bound_ms(n_bytes, float(n * hv.shape[1] * merged.shape[1]))
+            stats["min_cdist"] = {"frames": n, "rows": int(hv.shape[1]), "points": int(merged.shape[1]), "ms": ms,
+                                  "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound, "bound_by": by,
+                                  "plain_d2_max_abs_err": plain_err, "library_max_abs_diff": lib_err}
+            print(f"CR min_cdist on one segment ({n} frames x 778 rows x {merged.shape[1]} points): #1 {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms (per-frame d^2 max |diff| {plain_err:.3g} m^2), torch.cdist + min "
+                  f"{lib_ms:.4f} ms (max |diff| {lib_err:.3g} m), bound {bound:.4f} ms ({by}) ({card})", flush=True)
+
+            # 5. every CR segment's GT and refined hands against a float64
+            # witness (torch.cdist on the operands in float64): #1's per-frame
+            # d^2, the library yardstick's, and CR's under-5-mm flags
+            sd_pert = trees["perturbed"]
+            wit = {"kernel": 0.0, "library": 0.0, "flag_flips": 0, "near_threshold": 0, "frames": 0}
+            with torch.inference_mode():
+                for s in samples:
+                    n = int(s["len"])
+                    merged = ME.transf_merge_obj_pointcloud(s["obj_pointcloud"], s["obj_traj"][:, :n], dev)
+                    for hv_np in (CSC.gt_hand_geometry(mano, s)[0][:n], sd_pert[tuple(s["info"])]["verts"][:n]):
+                        hv = torch.as_tensor(np.asarray(hv_np), dtype=torch.float32, device=dev)
+                        want = library_min(hv.double(), merged.double()).amin(-1) ** 2
+                        got = NN.h2o_nn(hv, merged, None, 1)[0].amin(1).double()
+                        lib = library_min(hv, merged).amin(-1).double() ** 2
+                        wit["kernel"] = max(wit["kernel"], float((got - want).abs().max()))
+                        wit["library"] = max(wit["library"], float((lib - want).abs().max()))
+                        d_got = ME.contact_min_dists(hv, merged).astype(np.float64)
+                        d_want = want.sqrt().cpu().numpy()
+                        wit["flag_flips"] += int(((d_got < 0.005) != (d_want < 0.005)).sum())
+                        wit["near_threshold"] += int((np.abs(d_want - 0.005) <= 1e-5).sum())
+                        wit["frames"] += n
+            require(wit["kernel"] <= 1e-7, f"CR: #1's per-frame d^2 differs from the float64 witness by "
+                    f"{wit['kernel']} m^2")
+            require(wit["library"] <= 1e-6, f"CR: torch.cdist + min's per-frame d^2 differs from the float64 "
+                    f"witness by {wit['library']} m^2")
+            require(wit["flag_flips"] == 0, f"CR: {wit['flag_flips']} frames change side of 5 mm against the witness")
+            stats["cr_witness"] = wit
+            print(f"CR against a float64 witness on every segment ({wit['frames']} frames, GT and refined): #1's "
+                  f"per-frame d^2 max |diff| {wit['kernel']:.3g} m^2 (<= 1e-7), torch.cdist + min's "
+                  f"{wit['library']:.3g} m^2 (<= 1e-6); {wit['flag_flips']} frames on the other side of 5 mm; "
+                  f"{wit['near_threshold']} within 1e-5 m of it ({card})", flush=True)
+
+            # 6. the GPU against the CPU: CR's squared minima, FID's activations
+            mano_cpu = stack_mano_models(mano_rh, mano_lh, "cpu")
+            worst = 0.0
+            for s in samples[:2]:
+                n = min(int(s["len"]), 8)
+                for hv_np in (CSC.gt_hand_geometry(mano_cpu, s)[0][:n], sd_pert[tuple(s["info"])]["verts"][:n]):
+                    got = ME.contact_min_dists(hv_np, ME.transf_merge_obj_pointcloud(
+                        s["obj_pointcloud"], s["obj_traj"][:, :n], dev)).astype(np.float64)
+                    want = ME.contact_min_dists(hv_np, ME.transf_merge_obj_pointcloud(
+                        s["obj_pointcloud"], s["obj_traj"][:, :n])).astype(np.float64)
+                    worst = max(worst, float(np.abs(got ** 2 - want ** 2).max()))
+            require(worst <= 1e-7, f"CR squared minima: GPU vs CPU differ by {worst}")
+            model = train_encoder.build_encoder(reg)
+            load_model_weights(model, ckpt)
+            pairs = list(CSC.iter_eval_pairs(dataset, {k: sd_pert[k] for k in sorted(sd_pert)[:16]}))
+            acts = {d: CSC.fid_activations(model.to(d).eval(), collate, pairs, torch.device(d))
+                    for d in (dev, "cpu")}
+            act_err = max(float(np.abs(a - b).max()) for a, b in zip(acts[dev], acts["cpu"]))
+            require(act_err <= 1e-4, f"FID activations: GPU vs CPU differ by {act_err}")
+            lib_path = native.get_lib()._name
+            require(os.path.realpath(lib_path) == os.path.realpath(native.library_path())
+                    and os.path.realpath(lib_path).startswith(os.path.realpath(native.BUILD_DIR)),
+                    f"the inside-mesh library {lib_path} is not the port's own build")
+            stats["checks"] = {"cr_d2_max_abs_err": worst, "fid_activation_max_abs_err": act_err,
+                               "native_library": os.path.relpath(lib_path, repo)}
+            print(f"scoring checks: CR squared minima GPU vs CPU max |diff| {worst:.3g} m^2 (<= 1e-7); FID "
+                  f"activations GPU vs CPU {act_err:.3g} (<= 1e-4); triangle hash {os.path.relpath(lib_path, repo)}",
+                  flush=True)
+        finally:
+            os.chdir(cwd)
+    return cr_launches, stats
 
 
 def main() -> int:
@@ -3518,16 +3829,21 @@ def main() -> int:
     small_sampler_parity()
     phase("samplers and the G->R chain at full width")
     chain_cull, sample_stats = sampler_main_path()
-    phase("sample_g and sample_r entry points")
-    launcher_nn = sample_entry_points()
+    phase("sample_g, sample_r and compute_score entry points")
+    launcher_nn, chain_score_nn = sample_entry_points()
     print("sampling: " + json.dumps(sample_stats), flush=True)
+    phase("scoring chain: real-format data, train_encoder, compute_score")
+    score_nn, score_stats = scoring_path()
+    print("scoring: " + json.dumps(score_stats), flush=True)
     # each kernel's count from the paths that run it: serving for #1/#2 (#1
-    # also in sample_r, #2 also in the full-width G->R chain), the fused G
+    # also in sample_r and in compute_score's CR on its output and on the
+    # real-format data, #2 also in the full-width G->R chain), the fused G
     # training path for #6/#8, its fused_cull route for #9, the
     # composed route for #7, the R training paths for #3 (cull) and #4
     # (all-pairs), the grad_y path for #5, the R cluster route for #10/#11,
     # the signed cluster entry point for #12/#13
-    launches = {"h2o_nn": nn_counts["h2o_nn"] + launcher_nn, "h2o_cull": cull_counts["h2o_cull"] + chain_cull,
+    launches = {"h2o_nn": nn_counts["h2o_nn"] + launcher_nn + chain_score_nn + score_nn,
+                "h2o_cull": cull_counts["h2o_cull"] + chain_cull,
                 "nn_signed": train_counts["nn_signed"], "dist_loss": train_counts["dist_loss"],
                 "dist_loss_cull": fc_counts["dist_loss_cull"],
                 "nn_signed_bwd": composed_counts["nn_signed_bwd"],
@@ -3554,11 +3870,7 @@ def main() -> int:
         })
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(line))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
-    print(smi)
+    print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

@@ -18,7 +18,12 @@ their plain versions.
 Both take `backend="cluster"`, the cluster-pruned opt-in route
 (ops/chamfer_cluster.py: kernels #10-#13), exact where its certificate
 (`point2point_h2o_overflow`, ops/chamfer_cluster.signed_cluster_overflow)
-is zero. The JAX package's "xla" scan is not ported.
+is zero. The JAX package's "xla" scan is not ported as a backend.
+
+`min_cdist`, the Contact Ratio's distance core, runs the all-pairs kernel
+(#1) on CUDA tensors and its plain version on CPU tensors.
+`nearest_neighbor` is the JAX package's chunked search, kept as the parity
+target of that function.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import numpy as np
 import torch
 
 from ..ops import chamfer_cluster, chamfer_cull, chamfer_h2o_bwd, chamfer_nn, chamfer_signed
+from . import transforms as T
 
 CULL_MIN_P2 = 4096
 
@@ -280,3 +286,37 @@ def point2point_signed(
     return chamfer_signed.signed_chamfer(
         x, y, x_normals, y_valid, grad_y=grad_y, y_group=y_group
     )
+
+
+def nearest_neighbor(
+    x: torch.Tensor, y: torch.Tensor, y_valid: torch.Tensor | None = None, chunk: int = 2048
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """For each point of x [P1, 3], the (squared distance, index int32) of
+    its nearest point of y [P2, 3] (JAX core/geometry.py:129): y in tiles
+    of `chunk` points with a running minimum; squared distances in the
+    expanded form max(|x|^2 + |y|^2 - 2 x.y, 0); y_valid [P2] masks points
+    to inf. Within a tile the first minimum wins, across tiles the earlier."""
+    x2 = torch.sum(x * x, dim=-1, keepdim=True)  # [P1, 1]
+    best_d = torch.full((x.shape[0],), torch.inf, dtype=x.dtype, device=x.device)
+    best_i = torch.zeros((x.shape[0],), dtype=torch.int32, device=x.device)
+    for j0 in range(0, y.shape[0], chunk):
+        yc = y[j0 : j0 + chunk]
+        d = torch.clamp_min(x2 + torch.sum(yc * yc, dim=-1)[None, :] - 2.0 * (x @ yc.T), 0.0)
+        if y_valid is not None:
+            d = torch.where(y_valid[None, j0 : j0 + chunk], d, torch.inf)
+        dmin, i = torch.min(d, dim=1)
+        upd = dmin < best_d
+        best_d = torch.where(upd, dmin, best_d)
+        best_i = torch.where(upd, i.to(torch.int32) + j0, best_i)
+    return best_d, best_i
+
+
+def min_cdist(hv: torch.Tensor, pc: torch.Tensor) -> torch.Tensor:
+    """Per-frame min distance from any hand vert to any object point:
+    hv [T, Vh, 3], pc [T, Vo, 3] -> [T] (JAX core/geometry.py:481; the
+    reference's compute_score_cr.py:140-149 took torch.cdist + min). Each
+    row's nearest squared distance comes from the all-pairs kernel
+    (ops/chamfer_nn.h2o_nn, one cloud per frame), then the frame's minimum
+    and the safe square root."""
+    d2, _ = chamfer_nn.h2o_nn(hv, pc, None, 1)
+    return T._sqrt_positive_part(d2.amin(dim=1))

@@ -8,10 +8,11 @@ refiner R trains on:
   re-normalized (in PyTorch, on the CPU);
 - IdentitySampleAdaptor: GT passthrough.
 They perturb or copy before collate, so padded frames stay zero (the
-contract models/refine_r.sample_geometry relies on). `ACTION_LIST` is the
-JAX package's list of OakInk2 primitive actions (data/adaptors.py:22-41):
-69 names, though its comment and the synthetic label ids count 70. The
-action-recognition adapter comes with the encoder.
+contract models/refine_r.sample_geometry relies on).
+ActionRecognitionAdapter attaches the FID encoder's action label. `ACTION_LIST`
+is the JAX package's list of OakInk2 primitive actions
+(data/adaptors.py:22-41): 69 names, though its comment and the synthetic
+label ids count 70.
 """
 
 from __future__ import annotations
@@ -131,6 +132,33 @@ class IdentitySampleAdaptor:
         data = self.base[index]
         data["sample_info"] = None
         data["sample_pose_repr"] = data["pose_repr"]
+        return data
+
+
+class ActionRecognitionAdapter:
+    """Attach the action label parsed from the primitive identifier
+    "<action>:<id>" in info[1]: its name, its index in ACTION_LIST and the
+    one-hot over NUM_ACTIONS (ref action_adapter.py:28-40)."""
+
+    def __init__(self, base):
+        self.base = base
+
+    def set_epoch(self, epoch: int) -> None:
+        if hasattr(self.base, "set_epoch"):
+            self.base.set_epoch(epoch)
+
+    def __len__(self):
+        return len(self.base)
+
+    def __getitem__(self, index: int) -> dict[str, Any]:
+        data = self.base[index]
+        label = str(data["info"][1].split(":")[0])
+        label_id = ACTION_LIST.index(label)
+        onehot = np.zeros(NUM_ACTIONS, np.int32)
+        onehot[label_id] = 1
+        data["action_label"] = label
+        data["action_label_id"] = np.int32(label_id)
+        data["action_onehot"] = onehot
         return data
 
 

@@ -98,3 +98,7 @@ class SegmentCollate:
         if "mask" in res:
             res["mask"] = res["mask"].astype(np.float32)
         return res
+
+
+def interaction_segment_collate(samples, max_nobj: int = 4, n_obj_points: int = 2048):
+    return SegmentCollate(max_nobj=max_nobj, n_obj_points=n_obj_points)(samples)

@@ -2,8 +2,9 @@
 
 Input: the JAX models' param trees as nested dicts of numpy arrays (the
 `params` collection or the whole variables dict). Output: state_dicts of
-`models/mdm_g.InteractionSegmentMDM`, `models/refine_r.SegmentRefineNet`
-and `models/clip_text.ClipTextEncoder`, in the reference torch key layout.
+`models/mdm_g.InteractionSegmentMDM`, `models/refine_r.SegmentRefineNet`,
+`models/encoder.SegmentEncoder` and `models/clip_text.ClipTextEncoder`, in
+the reference torch key layout.
 
 The inverse of the JAX package's interop/torch_port `_lin/_attn/_trunk`:
 flax Dense kernel [in, out] -> Linear weight [out, in]; per-head attention
@@ -60,7 +61,7 @@ def _trunk(p: Mapping[str, Any], prefix: str) -> dict[str, torch.Tensor]:
     return sd
 
 
-def _common(p: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+def _cond_trunk(p: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     sd: dict[str, torch.Tensor] = {}
     sd.update(_lin(p["hand_shape_process"]["shape_embed"], "hand_shape_process.shape_embed"))
     sd.update(_lin(p["obj_embed_process"]["embedding"], "obj_embed_process.embedding"))
@@ -69,6 +70,11 @@ def _common(p: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     sd.update(_lin(p["input_merge"]["merge0"], "input_merge.0"))
     sd.update(_lin(p["input_merge"]["merge1"], "input_merge.2"))
     sd.update(_trunk(p["seqTransEncoder"], "seqTransEncoder"))
+    return sd
+
+
+def _common(p: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    sd = _cond_trunk(p)
     sd.update(_lin(p["output_process"]["poseFinal"], "output_process.poseFinal"))
     return sd
 
@@ -88,6 +94,18 @@ def r_state_dict_from_flax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     p = _params(tree)
     sd = _common(p)
     sd.update(_lin(p["h2o_dist_input_process"]["poseEmbedding"], "h2o_dist_input_process.poseEmbedding"))
+    return sd
+
+
+def encoder_state_dict_from_flax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX SegmentEncoder variables (params and the `buffers` collection)
+    -> SegmentEncoder state_dict: the MLP head's fc0/fc1/fc2 become
+    output_process.poseFinal.0/.2/.4, the buffer classification_token."""
+    p = _params(tree)
+    sd = _cond_trunk(p)
+    for i, name in enumerate(("fc0", "fc1", "fc2")):
+        sd.update(_lin(p["output_process"][name], f"output_process.poseFinal.{2 * i}"))
+    sd["classification_token"] = _t(tree["buffers"]["classification_token"])
     return sd
 
 

@@ -2,9 +2,6 @@
 config boot, dataset and loader construction, CLIP text features, moving a
 batch to the device, the samplers' sharding and segment infos, and the
 activation a checkpoint must run under.
-
-The real-data dataset (data/segment.py) is not ported yet: `build_dataset`
-serves the synthetic segments and raises for anything else.
 """
 
 from __future__ import annotations
@@ -19,6 +16,7 @@ import torch
 
 from ..data.collate import SegmentCollate
 from ..data.loader import DataLoader
+from ..data.segment import InteractionSegmentData
 from ..data.synthetic import SyntheticSegments
 from ..models.clip_text import FrozenClipText
 from ..runtime import logging as RL
@@ -62,10 +60,17 @@ def _plain(v: Any):
         return repr(v)
 
 
-def build_dataset(reg: ConfigRegistry, split: str):
+def build_dataset(reg: ConfigRegistry, split: str, toolkit: Any = None):
     """The split's dataset. Synthetic segments (data.synthetic: true) are
-    capped at 2 object slots and 512 points, as in the JAX package."""
+    capped at 2 object slots and 512 points, as in the JAX package;
+    otherwise the OakInk2 segments of data/segment.py from the split's
+    cache_dict_filepath (or process_range through a toolkit) and the
+    data.* object stores, reversed copies appended on the train split when
+    data.append_reverse_segment is set. `toolkit` (oakink2_toolkit's
+    interface) serves process_range extraction and, with
+    data.enable_obj_model, the object meshes."""
     data_cfg = reg.select("data")
+    split_cfg = reg.select(split)
     if data_cfg.get("synthetic"):
         return SyntheticSegments(
             size=int(data_cfg.get("synthetic_size", 64)),
@@ -73,10 +78,18 @@ def build_dataset(reg: ConfigRegistry, split: str):
             max_nobj=min(int(data_cfg.get("max_nobj", 4)), 2),
             n_obj_points=min(int(data_cfg.get("n_obj_points", 2048)), 512),
         )
-    raise NotImplementedError(
-        "the real-data dataset (OakInk2 segments, data/segment.py, slice.py, adaptors.py) "
-        "is not ported yet; run with --data.synthetic true"
+    kwargs: dict[str, Any] = dict(
+        process_range_list=split_cfg.get("process_range") or [],
+        data_prefix=data_cfg.get("data_prefix") or None,
+        obj_embedding_prefix=data_cfg.get("obj_embedding_prefix") or None,
+        obj_pointcloud_prefix=data_cfg.get("obj_pointcloud_prefix") or None,
+        enable_obj_model=bool(data_cfg.get("enable_obj_model")),
+        cache_dict_filepath=split_cfg.get("cache_dict_filepath") or None,
+        toolkit=toolkit,
     )
+    if split == "train":
+        kwargs["append_reverse_segment"] = bool(data_cfg.get("append_reverse_segment"))
+    return InteractionSegmentData(**kwargs)
 
 
 def build_loader(reg: ConfigRegistry, dataset, split: str, *, shuffle=None, drop_last=None) -> DataLoader:
@@ -96,12 +109,13 @@ def build_loader(reg: ConfigRegistry, dataset, split: str, *, shuffle=None, drop
     )
 
 
-def build_eval_loaders(reg: ConfigRegistry, wrap=None) -> dict[str, DataLoader]:
+def build_eval_loaders(reg: ConfigRegistry, wrap=None, toolkit: Any = None) -> dict[str, DataLoader]:
     """val/test loaders: a split is built only when configured (synthetic
     data, a cache dict or a process range); a configured split that fails
     to build raises; drop_last=False so the whole split is evaluated.
     `wrap(split, dataset)` adapts the dataset before the loader (R's sample
-    adaptors)."""
+    adaptors, the encoder's action adapter); `toolkit` goes to
+    build_dataset."""
     loaders: dict[str, DataLoader] = {}
     data_cfg = reg.select("data")
     for split in ("val", "test"):
@@ -110,7 +124,7 @@ def build_eval_loaders(reg: ConfigRegistry, wrap=None) -> dict[str, DataLoader]:
                 or split_cfg.get("process_range")):
             _logger.info("%s split not configured; skipping its eval", split)
             continue
-        ds = build_dataset(reg, split)
+        ds = build_dataset(reg, split, toolkit=toolkit)
         if wrap is not None:
             ds = wrap(split, ds)
         ld = build_loader(reg, ds, split, shuffle=False, drop_last=False)

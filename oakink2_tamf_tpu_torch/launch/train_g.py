@@ -10,8 +10,7 @@ default; without a GPU the run raises unless told "cpu").
 per segment (data/target_cache.GTGeomCache). `train.dist_impl fused_cull`
 takes the region-culled loss kernel, its mask tiled at `train.chunk`
 points (the other routes' kernels take no tile). Not ported yet: the
-real-data segments (`data.synthetic` must be true) and the profiler trace
-hook.
+profiler trace hook.
 """
 
 from __future__ import annotations

@@ -19,7 +19,6 @@ cluster-exactness certificate on its first batch (`make_overflow_probe`,
 `report_cluster_overflow`): INFO when the sample hand's cluster search was
 provably exact (always so off the cluster route), WARNING with the count of
 overflowed tiles otherwise, and the `{split}/h2o_cluster_overflow` scalar.
-Not ported: the real-data segments (`data.synthetic` must be true).
 """
 
 from __future__ import annotations

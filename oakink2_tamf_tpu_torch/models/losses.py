@@ -1,6 +1,7 @@
-"""G's geometric extra loss and R's refine loss (port of
-oakink2_tamf_tpu/models/losses.py:37-421; reference
-model/interaction_segment_extra_loss.py, model/segment_refine_model_loss.py).
+"""G's geometric extra loss, R's refine loss and the FID encoder's loss (port
+of oakink2_tamf_tpu/models/losses.py:37-433; reference
+model/interaction_segment_extra_loss.py, model/segment_refine_model_loss.py,
+model/segment_encoder_loss.py).
 
 Reduction quirks kept from the reference, as the JAX package keeps them:
 - G's per-item losses are SUMMED over the batch, R's are MEANED;
@@ -298,3 +299,15 @@ def segment_refine_loss(
 
     loss = cfg.coef_rec_joint * rec_joint + cfg.coef_rec_vert * rec_vert + cfg.coef_dist_h * dist_h
     return loss, {"loss": loss, "rec_joint": rec_joint, "rec_vert": rec_vert, "dist_h": dist_h}
+
+
+def segment_encoder_loss(
+    output: dict[str, torch.Tensor], action_label_id: torch.Tensor
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Cross-entropy and accuracy of the encoder's action logits
+    (ref segment_encoder_loss.py:10-27)."""
+    logits = output["activation"]  # [bs, n_actions]
+    label = action_label_id.long()
+    loss = torch.nn.functional.cross_entropy(logits, label)
+    acc = (torch.argmax(logits, dim=-1) == label).to(torch.float32).mean()
+    return loss, {"loss": loss, "ce": loss, "acc": acc}

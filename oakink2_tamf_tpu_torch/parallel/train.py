@@ -1,5 +1,5 @@
-"""The G and R train steps, their optimizer and the G sampler (port of
-oakink2_tamf_tpu/parallel/train.py:39-332), on one device for now.
+"""The G, R and FID-encoder train steps, their optimizer and the G sampler
+(port of oakink2_tamf_tpu/parallel/train.py:39-380), on one device for now.
 
 Optimizer parity (reference launch/train.py:469-479, util/net_util.py:13):
 - PER-PARAMETER gradient clip to L2 norm 0.1 (each tensor on its own, not a
@@ -29,6 +29,7 @@ import torch
 from ..core import diffusion as D
 from ..core import mano as M
 from ..models import losses as LL
+from ..models.encoder import COND_KEYS as ENCODER_COND_KEYS
 from ..models.refine_r import refine_forward, sample_geometry, target_geometry
 
 # ---------------------------------------------------------------------------
@@ -273,5 +274,36 @@ def make_r_train_step(
         state.optimizer.step()
         state.step += 1
         return {k: v.detach() for k, v in terms.items()}
+
+    return step_fn
+
+
+# ---------------------------------------------------------------------------
+# FID encoder: action-classification train step
+# ---------------------------------------------------------------------------
+
+
+def make_encoder_train_step() -> Callable[..., dict[str, torch.Tensor]]:
+    """The encoder train step (JAX make_encoder_train_step,
+    parallel/train.py:340-380).
+
+    step_fn(state, batch) -> metrics updates state in place: cross-entropy
+    and accuracy of the action logits (models/losses.segment_encoder_loss)
+    on `sample_pose_repr` when the batch has it, else on `pose_repr`
+    (reference train_encoder.py:521-523). Dropout draws from torch's global
+    generator. The classification token is a buffer, not a parameter, so
+    the optimizer never moves it (the JAX step zeroes its update)."""
+
+    def step_fn(state: TrainState, batch: dict[str, Any]) -> dict[str, torch.Tensor]:
+        model = state.model
+        model.train()
+        x = batch.get("sample_pose_repr", batch["pose_repr"])
+        state.optimizer.zero_grad()
+        out = model(x, {k: batch[k] for k in ENCODER_COND_KEYS})
+        loss, metrics = LL.segment_encoder_loss(out, batch["action_label_id"])
+        loss.backward()
+        state.optimizer.step()
+        state.step += 1
+        return {k: v.detach() for k, v in metrics.items()}
 
     return step_fn

@@ -1,5 +1,5 @@
 """Harness tests of the PyTorch/CUDA port (oakink2_tamf_tpu_torch): it
-imports neither JAX nor the JAX package, its entry points refuse a silent
+imports neither JAX, the JAX package nor scipy, its entry points refuse a silent
 CPU run, its kernel wrappers take the plain path only for CPU tensors, and
 (on a GPU only) its CUDA kernels match their plain versions."""
 
@@ -28,7 +28,7 @@ KERNELS = (NN.KERNEL, CU.KERNEL, CS.KERNEL, CS.BWD_KERNEL, CL.KERNEL,
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
 PKG = pathlib.Path(oakink2_tamf_tpu_torch.__file__).parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "oakink2_tamf_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "oakink2_tamf_tpu", "scipy")
 
 
 def _forbidden(name: str) -> bool:
@@ -400,3 +400,22 @@ def test_cuda_cull_loss_kernel_matches_plain_and_all_pairs(tile):
         assert torch.equal(got[i][live], full[i][live])
     _assert_scatter_close(got[2][live], full[2][live])
     assert all(bool((a[~live] == 0).all()) for a in got)
+
+
+@pytest.mark.cuda
+def test_cuda_min_cdist_runs_kernel_1_and_matches_the_cpu():
+    """CR's distance core (core/geometry.min_cdist) on CUDA tensors launches
+    the all-pairs kernel (#1) once and gives the CPU plain route's squared
+    per-frame minima within 1e-7 m^2."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from oakink2_tamf_tpu_torch.core import geometry as G
+
+    rng = np.random.default_rng(4)
+    hv = torch.from_numpy(rng.normal(scale=0.05, size=(12, 778, 3)).astype(np.float32))
+    pc = torch.from_numpy(rng.normal(scale=0.08, size=(12, 2 * 1000, 3)).astype(np.float32))
+    before = NN.KERNEL.launches
+    got = G.min_cdist(hv.cuda(), pc.cuda())
+    assert NN.KERNEL.launches == before + 1 and got.is_cuda
+    want = G.min_cdist(hv, pc)
+    np.testing.assert_allclose(got.double().cpu().numpy() ** 2, want.double().numpy() ** 2, atol=1e-7, rtol=0)

@@ -41,10 +41,12 @@ from oakink2_tamf_tpu.runtime import config as JCFG
 from oakink2_tamf_tpu_torch.core import diffusion as D
 from oakink2_tamf_tpu_torch.core import mano as M
 from oakink2_tamf_tpu_torch.core import schedule_sampler as SS
+from oakink2_tamf_tpu_torch.data import fabricate as F
 from oakink2_tamf_tpu_torch.data import loader as LD
 from oakink2_tamf_tpu_torch.data.collate import SegmentCollate
 from oakink2_tamf_tpu_torch.data.synthetic import SyntheticSegments
 from oakink2_tamf_tpu_torch.interop import from_jax
+from oakink2_tamf_tpu_torch.launch import common
 from oakink2_tamf_tpu_torch.launch import param as P
 from oakink2_tamf_tpu_torch.launch import train_g
 from oakink2_tamf_tpu_torch.models import losses as LL
@@ -284,8 +286,32 @@ def test_train_g_main_cpu_smoke_and_checkpoint(tmp_path, monkeypatch):
     assert fresh.optimizer.lr == state.optimizer.lr
 
 
+def test_train_g_main_on_a_fabricated_cache(tmp_path, monkeypatch):
+    """train_g.main on real-format data: a cache_dict pickle of 160-frame
+    segments (each holding 2 of 3 objects) with its .npy embeddings and .npz
+    clouds of 256 points, through build_dataset's real branch, cut to 2
+    slots of 128 points; one step on the CPU."""
+    paths = F.write_dataset(str(tmp_path), 10, seq_len=160, n_obj=3, n_points=256, seed=2)
+    built = []
+    build = common.build_dataset
+    monkeypatch.setattr(common, "build_dataset", lambda *a, **k: built.append(build(*a, **k)) or built[-1])
+    monkeypatch.chdir(tmp_path)
+    state = train_g.main([
+        "--cfg", os.path.join(REPO, "config/synthetic_smoke.yml"), "--runtime.device", "cpu",
+        "--exp_id", "fab", "--runtime.num_worker", "0", "--train.num_epoch", "1",
+        "--data.synthetic", "false", "--data.max_nobj", "2", "--data.n_obj_points", "128",
+        "--train.cache_dict_filepath", paths["cache_dict"],
+        "--data.obj_embedding_prefix", paths["obj_embedding_prefix"],
+        "--data.obj_pointcloud_prefix", paths["obj_pointcloud_prefix"],
+    ])
+    assert [type(d).__name__ for d in built] == ["InteractionSegmentData"] and len(built[0]) == 10
+    assert state.step == 1  # 10 segments / batch 8, drop_last
+    assert all(torch.isfinite(p).all() for p in state.model.parameters())
+
+
 def test_train_g_refuses_what_is_not_ported(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     base = ["--cfg", os.path.join(REPO, "config/synthetic_smoke.yml"), "--runtime.device", "cpu"]
-    with pytest.raises(NotImplementedError, match="segment.py"):
+    # real data is ported: without a cache_dict or a toolkit there is nothing to load
+    with pytest.raises(ValueError, match="need cache_dict"):
         train_g.main(base + ["--data.synthetic", "false"])
