@@ -84,6 +84,10 @@ Phases (any failure exits non-zero and prints no result line):
 6. small GPU-vs-CPU parity: the serving pipeline, a G train step on the
    three dist routes and an R train step on all three h2o routes (same
    weights, batch and noise, dropout 0): loss and gradients must agree;
+   then the training options: G steps at model.compute_dtype bfloat16,
+   with model.remat, and with both, and a bf16 R step (loss 1e-2 and
+   gradients 1e-1 of their norm at bf16; remat in float32 as above), the
+   model output reaching the loss float32;
 7. the G training main path: arch_mdm_l, batch 64 x 160 frames x 4 objects
    x 8192 points, 1000-step cosine schedule, dist_impl="auto" (fused),
    synthetic segments, one warm-up step then 3 timed steps; the signed
@@ -94,13 +98,21 @@ Phases (any failure exits non-zero and prints no result line):
 8. the composed route: the same model and batch, 2 steps; the signed
    forward and its backward kernel must launch; then a third step whose
    #7 operands are kept, #7 timed on them with the distinct rows per 32
-   live points it meets there;
+   live points it meets there; then the G training options at full width
+   on the fused route: bf16, remat and both beside float32 (two warm-up
+   and 3 timed steps each from the same seed: step s, samples/s, peak
+   GiB; #6 and #8 once per step), and a profiler trace of 2 float32 and 2
+   bf16 steps (the five device operations with the most time, the
+   device's busy share);
 9. the entry point: launch/train_g.main on config/synthetic_smoke.yml on
    the card (two short epochs), on the fused and the fused_cull routes;
 10. the gt_geom cache: train_g.main with train.data.cache_gt_geom (the
    signed forward runs in the precompute, not in the steps), then a fresh
    cache's cold misses computed in the loader's threads against the
-   batched precompute;
+   batched precompute; then train_g.main with runtime.profile_dir for 20
+   steps: the Chrome trace of steps 11-20 must parse and hold device
+   events of #6 and #8 by their symbol names (top device operations, busy
+   share);
 11. the R training main path, cull route: arch_refine, batch 64 x 160
    frames x 4 objects x 8192 points with target_h2o from TargetH2OCache,
    one warm-up step then 3 timed steps and the step's split; #2 and #3
@@ -108,7 +120,8 @@ Phases (any failure exits non-zero and prints no result line):
    hands #3; then the same on the all-pairs route at 2048 points (#1 and
    #4 once per step, no culled kernel), its split, and #1 and #4 timed on
    the operands the step hands them, with the share of cells that hold a
-   valid point;
+   valid point; then the all-pairs route at bf16 beside float32 (two
+   warm-up and 3 timed steps each, #1 and #4 once per step, peak GiB);
 12. launch/train_r.main on config/synthetic_smoke.yml on the card;
 13. the R training main path, cluster route (train.h2o_backend cluster):
    the same model and batch shape, 3 timed steps and the split; #10 must
@@ -129,10 +142,15 @@ Phases (any failure exits non-zero and prints no result line):
 19. small sampler parity: parallel/train.make_g_sampler with each sampler
    (ddpm, ddim, plms, parallel) and models/extract_sample at 256 and 4096
    points (#1, #2), GPU against CPU with the same small weights, batch and
-   noise: 1e-3;
+   noise: 1e-3; then core/diffusion's vb branches on a small G whose
+   model_fn emits 2C channels, GPU against CPU: training_losses at KL and
+   LEARNED_RANGE's vb term, calc_bpd_loop on 50 respaced steps (t > 0
+   rtol 5e-4 / atol 1e-4, t = 0 and total_bpd 2e-2);
 20. the samplers at full width: make_g_sampler at arch_mdm_l G, batch 64 x
    160 frames x 4 slots x 8192 points, 1000-step cosine schedule, DDPM,
-   DDIM and PLMS once each (samples/s, finite), the parallel sampler at
+   DDIM and PLMS once each (samples/s, finite), DDPM again with the trunk
+   in bf16 (same weights and noise: wall s, the largest difference from
+   the float32 chain's samples), the parallel sampler at
    batch 4 (window 64, tol 1e-2: sweeps, model evaluations, wall time)
    beside DDPM at batch 4; then the G -> R chain, extract_refined_sample on
    the same 64 segments (DDPM, same seed) and default R: #2 must launch, #1
@@ -168,6 +186,7 @@ last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -3274,6 +3293,29 @@ def sampler_main_path():
               f"{SAMPLE_BS / wall:.3f} samples/s ({wall / sched.num_timesteps * 1e3:.3f} ms per step); "
               f"finite {finite}", flush=True)
 
+    # DDPM with the trunk in bf16: the same weights and the same generator
+    # seed, so the same x_T and step noise as the float32 chain above
+    g_bf16 = InteractionSegmentMDM(dataclasses.replace(MDMConfig.arch_mdm_l(), compute_dtype="bfloat16"))
+    g_bf16.load_state_dict(g.state_dict())
+    g_bf16 = g_bf16.to(dev).eval().requires_grad_(False)
+    fn = PT.make_g_sampler(full)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = fn(g_bf16, db, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    finite = bool(torch.isfinite(x).all())
+    require(tuple(x.shape) == (SAMPLE_BS, L, 99) and finite, f"ddpm bf16: shape {tuple(x.shape)}, finite {finite}")
+    diff = (x - samples["ddpm"]).abs().max().item()
+    stats["ddpm_bf16"] = {"wall_s": wall, "samples_per_s": SAMPLE_BS / wall, "steps": full.num_timesteps,
+                          "max_abs_diff_from_float32": diff}
+    print(f"sampler ddpm, trunk in bf16: batch {SAMPLE_BS} x {L} frames, {full.num_timesteps} steps, {wall:.3f} s = "
+          f"{SAMPLE_BS / wall:.3f} samples/s ({wall / full.num_timesteps * 1e3:.3f} ms per step) against "
+          f"{stats['ddpm']['wall_s']:.3f} s in float32; finite {finite}; largest difference from the float32 "
+          f"chain's samples (same noise) {diff:.4g}, their largest magnitude "
+          f"{samples['ddpm'].abs().max().item():.4g}", flush=True)
+    del g_bf16, x
+
     # the parallel sampler at batch 4: its sweeps and latency beside DDPM's
     small = {k: v[:SAMPLE_PARALLEL_BS] for k, v in db.items()}
     with torch.inference_mode():
@@ -3696,6 +3738,315 @@ def scoring_path(dev: str = "cuda"):
     return cr_launches, stats
 
 
+# ---------------------------------------------------------------------------
+# Training options: the bf16 trunk, remat, the vb branches, the profiler
+# ---------------------------------------------------------------------------
+
+OPTION_GRAD_RTOL = 1e-1  # norm-wise, a bf16 step's clipped gradients GPU vs CPU (bf16 rounding, 1-5%)
+OPTION_LOSS_RTOL = 1e-2  # a bf16 step's loss GPU vs CPU
+
+
+def _grad_gap(a: dict, b: dict) -> float:
+    """max over parameters of ||a - b|| / (||b|| + 1e-6)."""
+    return max((a[k] - g).norm().item() / (g.norm().item() + 1e-6) for k, g in b.items())
+
+
+def small_option_parity() -> None:
+    """Small G steps (bf16 on the fused route; remat at dropout 0 in float32
+    and in bf16) and a small bf16 R step (all-pairs route), on the GPU
+    (kernels) and on the CPU (plain versions): the same weights, batch, t
+    and noise. The model output that reaches the extra loss must be
+    float32 on both. float32 with remat is held as the float32 steps are
+    (loss 1e-4, gradients 2e-3 of their norm); a bf16 step's loss within
+    OPTION_LOSS_RTOL and its gradients within OPTION_GRAD_RTOL of their
+    norm: the card's and the CPU's bf16 matmuls round their outputs alike
+    but sum in other orders, and a one-ulp difference of a bf16 value is
+    4e-3 of it."""
+    import numpy as np
+    import torch
+
+    from oakink2_tamf_tpu_torch.models.clip_text import FrozenClipText
+    from oakink2_tamf_tpu_torch.models.mdm_g import MDMConfig
+    from oakink2_tamf_tpu_torch.models.refine_r import RefineConfig
+
+    small = dict(latent_dim=32, ff_size=64, num_layers=2, num_heads=4, dropout=0.0)
+    rng = np.random.default_rng(6)
+    noise = torch.from_numpy(rng.normal(size=(4, 16, 99)).astype(np.float32))
+    t = torch.tensor([0, 10, 500, 999])
+    g_cases = (("bf16", dict(compute_dtype="bfloat16")), ("remat", dict(remat=True)),
+               ("bf16 + remat", dict(compute_dtype="bfloat16", remat=True)))
+    for label, opts in g_cases:
+        res = {}
+        for dev in ("cuda", "cpu"):
+            clip = FrozenClipText(device=dev)
+            db = _train_batch(4, 16, 2, 512, seed=5, clip=clip, device=dev)
+            db.update(t=t.to(dev), t_weights=torch.ones(4, device=dev))
+            state, step, _ = _g_training(torch.device(dev), MDMConfig(**small, **opts), "auto")
+            outs = []
+            state.model.register_forward_hook(lambda m, a, out: outs.append(out.dtype))
+            m = step(state, db, noise=noise.to(dev))
+            require(outs == [torch.float32], f"small G step ({label}, {dev}): model output dtypes {outs}")
+            res[dev] = (float(m["loss"]), {k: p.grad.cpu() for k, p in state.model.named_parameters()})
+        la, lb = res["cuda"][0], res["cpu"][0]
+        bf16 = "compute_dtype" in opts
+        rtol, gtol = (OPTION_LOSS_RTOL, OPTION_GRAD_RTOL) if bf16 else (1e-4, 2e-3)
+        gap = _grad_gap(res["cuda"][1], res["cpu"][1])
+        require(abs(la - lb) <= rtol * abs(lb), f"small G step ({label}): GPU loss {la} vs CPU {lb}")
+        require(gap <= gtol, f"small G step ({label}): gradients differ by {gap} of their norm")
+        print(f"small G train step ({label}, fused route): GPU (kernels) vs CPU (plain) loss {la:.6f} / {lb:.6f}, "
+              f"worst relative grad diff {gap:.2e} (bound {gtol:g}); model output float32", flush=True)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        cfg = RefineConfig(**small, compute_dtype="bfloat16")
+        state, step, mano, _ = _r_training(torch.device(dev), cfg, "auto")
+        db, _ = _r_batch(4, 16, 2, 512, 5, mano, torch.device(dev), cache=False)
+        outs = []
+        state.model.register_forward_hook(lambda m, a, out: outs.append(out.dtype))
+        m = step(state, db)
+        require(outs == [torch.float32], f"small R step (bf16, {dev}): net output dtypes {outs}")
+        res[dev] = (float(m["loss"]), {k: p.grad.cpu() for k, p in state.model.named_parameters()})
+    la, lb = res["cuda"][0], res["cpu"][0]
+    gap = _grad_gap(res["cuda"][1], res["cpu"][1])
+    require(abs(la - lb) <= OPTION_LOSS_RTOL * abs(lb), f"small R step (bf16): GPU loss {la} vs CPU {lb}")
+    require(gap <= OPTION_GRAD_RTOL, f"small R step (bf16): gradients differ by {gap} of their norm")
+    print(f"small R train step (bf16, all-pairs route): GPU (kernels) vs CPU (plain) loss {la:.6f} / {lb:.6f}, "
+          f"worst relative grad diff {gap:.2e} (bound {OPTION_GRAD_RTOL:g}); net output float32", flush=True)
+
+
+def _timed_steps(step_call, n: int = 3):
+    """(mean step s, per-step s, losses, peak GiB) of n steps after the
+    counts were set to 0 by the caller; peak over the n steps."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        m = step_call()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    require(all(v == v and abs(v) < float("inf") for v in losses), f"non-finite training loss {losses}")
+    return sum(times) / n, times, losses, torch.cuda.max_memory_allocated() / 2**30
+
+
+def g_option_main_path(db) -> dict:
+    """G training at full width (arch_mdm_l, dropout 0.1, batch 64 x 160
+    frames x 4 objects x 8192 points, fused route) with model.compute_dtype
+    bfloat16, with model.remat, and with both, beside float32 in the same
+    process: each from the same seed, two warm-up steps and 3 timed steps,
+    #6 and #8 once per step; then, for float32 and bf16, a profiler trace
+    of 2 more steps (trace_summary). -> {variant: (step s, peak GiB)}."""
+    import torch
+
+    import tempfile
+
+    from oakink2_tamf_tpu_torch.models.mdm_g import MDMConfig
+    from oakink2_tamf_tpu_torch.ops import chamfer_loss as CL
+    from oakink2_tamf_tpu_torch.ops import chamfer_signed as CS
+    from oakink2_tamf_tpu_torch.runtime import profiler as P
+
+    dev = torch.device("cuda")
+    kernels = {"nn_signed": CS.KERNEL, "dist_loss": CL.KERNEL}
+    out = {}
+    for label, opts in (("float32", {}), ("bf16", dict(compute_dtype="bfloat16")), ("remat", dict(remat=True)),
+                        ("bf16 + remat", dict(compute_dtype="bfloat16", remat=True))):
+        state, step, _ = _g_training(dev, dataclasses.replace(MDMConfig.arch_mdm_l(), **opts), "auto")
+        gen = torch.Generator(device=dev).manual_seed(0)
+        for _ in range(2):  # warm-up
+            step(state, db, generator=gen)
+        torch.cuda.synchronize()
+        _zero_counts(kernels)
+        step_s, times, losses, peak = _timed_steps(lambda: step(state, db, generator=gen))
+        counts = {n: k.launches for n, k in kernels.items()}
+        out[label] = (step_s, peak)
+        ref = out["float32"]
+        print(f"G options ({label}, fused): steps {[round(x, 4) for x in times]} s, mean {step_s:.4f} s = "
+              f"{TRAIN_BS / step_s:.3f} samples/s ({ref[0] / step_s:.3f}x float32's {ref[0]:.4f} s); peak "
+              f"memory {peak:.2f} GiB (float32 {ref[1]:.2f}); losses {losses}; launches {counts}", flush=True)
+        require(counts == {"nn_signed": 3, "dist_loss": 3}, f"G options ({label}): launches {counts} in 3 steps")
+        if label in ("float32", "bf16"):  # where a full-width step's device time goes
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
+                with P.trace(tmp) as tr:
+                    for _ in range(2):
+                        step(state, db, generator=gen)
+                trace_summary(tr.path, f"G step trace ({label}, fused, 2 steps)")
+        del state, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def r_option_main_path() -> dict:
+    """R training at full width on the all-pairs route (arch_refine,
+    dropout 0.1, batch 64 x 160 frames x 4 objects x 2048 points,
+    target_h2o cached) at model.compute_dtype bfloat16 beside float32: two
+    warm-up and 3 timed steps each, #1 and #4 once per step, the culled
+    kernels never. -> {variant: (step s, peak GiB)}."""
+    import torch
+
+    from oakink2_tamf_tpu_torch.models.refine_r import RefineConfig
+
+    dev = torch.device("cuda")
+    kernels = _r_kernel_objects()
+    out, db = {}, None
+    for label, opts in (("float32", {}), ("bf16", dict(compute_dtype="bfloat16"))):
+        state, step, mano, _ = _r_training(dev, dataclasses.replace(RefineConfig(), **opts), "auto")
+        if db is None:
+            db, _ = _r_batch(TRAIN_BS, TRAIN_L, TRAIN_NOBJ, R_ALL_PAIRS_P, 11, mano, dev)
+        for _ in range(2):  # warm-up
+            step(state, db)
+        torch.cuda.synchronize()
+        _zero_counts(kernels)
+        step_s, times, losses, peak = _timed_steps(lambda: step(state, db))
+        counts = {n: k.launches for n, k in kernels.items()}
+        out[label] = (step_s, peak)
+        ref = out["float32"]
+        print(f"R options ({label}, all-pairs route, {R_ALL_PAIRS_P} points): steps {[round(x, 4) for x in times]} "
+              f"s, mean {step_s:.4f} s = {TRAIN_BS / step_s:.3f} samples/s ({ref[0] / step_s:.3f}x float32's "
+              f"{ref[0]:.4f} s); peak memory {peak:.2f} GiB (float32 {ref[1]:.2f}); losses {losses}; launches "
+              f"{counts}", flush=True)
+        require(counts["h2o_nn"] == 3 and counts["h2o_nn_dvec"] == 3 and counts["h2o_cull"] == 0
+                and counts["h2o_cull_dvec"] == 0, f"R options ({label}): launches {counts} in 3 steps")
+        del state, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def vb_branch_parity() -> None:
+    """The learned-variance and KL branches of core/diffusion on a small G
+    whose model_fn emits 2C channels ([x + 0.01 G(x) | tanh(G(x))]: near x_0
+    at t = 0, as a trained model is, so the t = 0 decoder NLL is well
+    conditioned), GPU against CPU with the same weights, inputs and noise:
+    training_losses at KL, and at MSE with LEARNED_RANGE (its vb term), on
+    the full 1000-step schedule; calc_bpd_loop (FIXED_SMALL, as in JAX: the
+    mean half) on 50 respaced steps. The
+    tolerances of tests/test_torch_diffusion_vb.py: t > 0 terms rtol 5e-4 /
+    atol 1e-4, the t = 0 terms and total_bpd rtol 2e-2."""
+    import numpy as np
+    import torch
+
+    from oakink2_tamf_tpu_torch.core import diffusion as D
+    from oakink2_tamf_tpu_torch.models.clip_text import FrozenClipText
+    from oakink2_tamf_tpu_torch.models.mdm_g import InteractionSegmentMDM, MDMConfig
+    from oakink2_tamf_tpu_torch.parallel import train as PT
+
+    rng = np.random.default_rng(8)
+    bs, L = 4, 16
+    x0 = np.clip(0.5 * rng.normal(size=(bs, L, 99)), -1, 1).astype(np.float32)
+    noise = rng.normal(size=(bs, L, 99)).astype(np.float32)
+    bpd_noise = rng.normal(size=(50, bs, L, 99)).astype(np.float32)
+    t = np.array([0, 3, 400, 999])
+    res = {}
+    for dev in ("cuda", "cpu"):
+        torch.manual_seed(0)
+        g = InteractionSegmentMDM(MDMConfig(latent_dim=32, ff_size=64, num_layers=2, num_heads=4, dropout=0.0))
+        g = g.to(dev).eval()
+        db = _train_batch(bs, L, 2, 64, seed=5, clip=FrozenClipText(device=dev), device=dev)
+        gfn = PT.g_model_fn(g, PT.g_cond_from_batch(db))
+
+        def model_fn(x, tt):
+            h = gfn(x, tt)
+            return torch.cat([x + 0.01 * h, torch.tanh(h)], dim=-1)
+
+        T = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        full = D.tamf_schedule(1000).to(dev)
+        with torch.no_grad():
+            kl, _ = D.training_losses(model_fn, full, T(x0), T(t), db["mask"], noise=T(noise),
+                                      model_var_type=D.ModelVarType.LEARNED_RANGE, loss_type=D.LossType.KL)
+            mse, aux = D.training_losses(model_fn, full, T(x0), T(t), db["mask"], noise=T(noise),
+                                         model_var_type=D.ModelVarType.LEARNED_RANGE)
+            bpd = D.calc_bpd_loop(lambda x, tt: model_fn(x, tt)[..., :99], D.tamf_schedule(1000, "cosine", "50").to(dev),
+                                  T(x0), noise=T(bpd_noise))  # FIXED_SMALL: the mean half
+        res[dev] = {"kl": kl, "mse": mse, "vb": aux["vb"], **{f"bpd_{k}": v for k, v in bpd.items()}}
+    late = torch.from_numpy(t > 0)
+    worst = {}
+    for k, want in res["cpu"].items():
+        got = res["cuda"][k].cpu()
+        require(bool(torch.isfinite(got).all()), f"vb branches: {k} not finite on the GPU")
+        if k in ("kl", "vb"):
+            pairs = ((got[late], want[late], 5e-4, 1e-4), (got[~late], want[~late], 2e-2, 0.0))
+        elif want.ndim == 2:  # [bs, T] columns, the last one t = 0
+            pairs = ((got[:, :-1], want[:, :-1], 5e-4, 1e-4), (got[:, -1], want[:, -1], 2e-2, 0.0))
+        else:
+            pairs = ((got, want, 2e-2 if k == "bpd_total_bpd" else 5e-4, 1e-4),)
+        for a, b, rtol, atol in pairs:
+            require(bool(torch.allclose(a, b, rtol=rtol, atol=atol)),
+                    f"vb branches: {k} GPU vs CPU differ by {(a - b).abs().max().item()} (rtol {rtol})")
+        worst[k] = (got - want).abs().max().item()
+    print("vb branches (KL, LEARNED_RANGE vb, calc_bpd_loop on 50 steps), GPU vs CPU, largest differences: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()), flush=True)
+
+
+def _busy_share(events, window) -> float:
+    """The share of `window` (start, end) in microseconds covered by the
+    union of the events' [ts, ts + dur) intervals."""
+    spans = sorted((max(e["ts"], window[0]), min(e["ts"] + e["dur"], window[1])) for e in events)
+    busy, end = 0.0, window[0]
+    for a, b in spans:
+        if b > max(a, end):
+            busy += b - max(a, end)
+            end = b
+    return busy / (window[1] - window[0])
+
+
+def trace_summary(path: str, label: str) -> dict:
+    """Reads a Chrome trace of runtime/profiler.py: prints its five device
+    operations with the most time and the device's busy share of the traced
+    window (first to last event of the trace). -> {kernel name: events}."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X" and "dur" in e]
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    per_op = {}
+    for e in device:
+        per_op.setdefault(e["name"], []).append(e["dur"])
+    window = (min(e["ts"] for e in events), max(e["ts"] + e["dur"] for e in events))
+    total = sum(sum(v) for v in per_op.values())
+    print(f"{label}: trace {os.path.getsize(path) / 2**20:.2f} MiB, {len(events)} complete events, {len(device)} on "
+          f"the device, {total / 1e3:.3f} ms of device time", flush=True)
+    for name, durs in sorted(per_op.items(), key=lambda kv: -sum(kv[1]))[:5]:
+        print(f"  {label} top device op: {sum(durs) / 1e3:.3f} ms in {len(durs)} calls "
+              f"({sum(durs) / max(total, 1e-9):.1%} of device time): {name[:120]}", flush=True)
+    busy = _busy_share(device, window) if device else 0.0
+    print(f"{label}: device busy {busy:.4f} of the traced window ({(window[1] - window[0]) / 1e3:.3f} ms)", flush=True)
+    return {k: len(v) for k, v in per_op.items()}
+
+
+def profile_entry_point() -> None:
+    """launch/train_g.main on config/synthetic_smoke.yml for 10 epochs (20
+    steps) with runtime.profile_dir set: the Chrome trace of steps 11-20
+    must exist, parse and hold device events of #6 (nn_signed_kernel) and
+    #8 (dist_loss_kernel), found by their symbol names. Prints the five
+    device operations with the most time and the device's busy share of
+    the traced window (first to last event of the trace)."""
+    import tempfile
+
+    import torch
+
+    from oakink2_tamf_tpu_torch.launch import train_g
+    from oakink2_tamf_tpu_torch.ops import chamfer_loss as CL
+    from oakink2_tamf_tpu_torch.ops import chamfer_signed as CS
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
+        CS.KERNEL.launches = CL.KERNEL.launches = 0
+        t0 = time.perf_counter()
+        state = train_g.main(["--cfg", os.path.join(root, "config/synthetic_smoke.yml"), "--exp_id",
+                              "chip_smoke_profile", "--train.num_epoch", "10", "--runtime.profile_dir", tmp])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        require(state.step == 20, f"train_g.main (profiled) took {state.step} steps, expected 20")
+        names = os.listdir(tmp)
+        require(len(names) == 1 and names[0].endswith(".json"), f"profiler trace files: {names}")
+        counts = trace_summary(os.path.join(tmp, names[0]), "profiled train_g.main")
+    n6 = sum(n for k, n in counts.items() if "nn_signed_kernel" in k)
+    n8 = sum(n for k, n in counts.items() if "dist_loss_kernel" in k)
+    print(f"profiled train_g.main (synthetic_smoke.yml, 20 steps, steps 11-20 traced): {wall:.2f} s; "
+          f"nn_signed_kernel events {n6}, dist_loss_kernel events {n8} (wrapper launches in the run: nn_signed "
+          f"{CS.KERNEL.launches}, dist_loss {CL.KERNEL.launches})", flush=True)
+    require(counts, "the profiler trace holds no device events (CUPTI saw no kernel)")
+    require(n6 > 0 and n8 > 0, f"the profiler trace lacks #6 ({n6}) or #8 ({n8}) device events")
+
+
 def main() -> int:
     import torch
 
@@ -3791,13 +4142,19 @@ def main() -> int:
     small_r_train_parity()
     phase("small R train-step parity, cluster route")
     small_r_cluster_parity()
+    phase("small train-option parity (bf16, remat)")
+    small_option_parity()
     phase("training main path (fused)")
     state, db, train_counts, _ = train_main_path()
     phase("training main path (fused_cull)")
     state, db, fc_counts, _ = train_main_path("fused_cull", state, db)
     phase("composed route")
     composed_counts = composed_route(state, db)
-    del state, db
+    del state
+    torch.cuda.empty_cache()
+    phase("G training options at full width (bf16, remat)")
+    g_option_main_path(db)
+    del db
     torch.cuda.empty_cache()
     phase("entry point")
     entry_point()
@@ -3805,11 +4162,16 @@ def main() -> int:
     entry_point("fused_cull")
     phase("gt_geom cache")
     gt_cache_path()
+    phase("train_g profiler trace")
+    profile_entry_point()
     phase("R training main path (cull route)")
     _, r_counts, _ = r_train_main_path()
     torch.cuda.empty_cache()
     phase("R training main path (all-pairs route)")
     _, r_ap_counts, _ = r_train_main_path("all-pairs")
+    torch.cuda.empty_cache()
+    phase("R training at bf16, all-pairs route")
+    r_option_main_path()
     torch.cuda.empty_cache()
     phase("R entry point")
     r_entry_point()
@@ -3827,6 +4189,8 @@ def main() -> int:
     nn_counts, _ = main_path(2048, "50", "h2o_nn", "main path (all-pairs route, 2048 points)")
     phase("small sampler parity")
     small_sampler_parity()
+    phase("diffusion vb branches, GPU vs CPU")
+    vb_branch_parity()
     phase("samplers and the G->R chain at full width")
     chain_cull, sample_stats = sampler_main_path()
     phase("sample_g, sample_r and compute_score entry points")

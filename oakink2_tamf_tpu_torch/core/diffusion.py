@@ -2,7 +2,12 @@
 
 The schedule is computed in float64 numpy, exactly as the JAX package does,
 then cast to float32 tensors on the device. The TaMF configuration: cosine
-betas, START_X prediction, FIXED_SMALL variance, optional respacing.
+betas, START_X prediction, FIXED_SMALL variance, MSE loss, optional
+respacing. The other branches of the JAX engine are here too: the
+PREVIOUS_X and EPSILON mean types, FIXED_LARGE and the learned variances
+(LEARNED, LEARNED_RANGE: the model emits 2C channels, split on the last
+axis), the KL / RESCALED_KL / RESCALED_MSE losses and the variational
+bound (`vb_terms_bpd`, `calc_bpd_loop`, `prior_bpd`).
 
 The samplers are Python loops on the device, one model call per step:
 - `p_sample_loop` (DDPM, with const_noise, skip_timesteps and init_image)
@@ -18,9 +23,10 @@ indexed by the timestep t. What is not given is drawn from a
 torch.Generator. `clip_denoised`, `denoised_fn` and `cond_fn` act as in the
 JAX package.
 
-Training (`training_losses`): START_X prediction, MSE loss, FIXED_SMALL
-variance, the configuration of every TaMF config. The KL / learned-variance
-branches of the JAX package are not ported. It takes an explicit `noise=`
+Training (`training_losses`): the masked MSE of the mean type's target,
+or with KL / RESCALED_KL the variational bound; with a learned variance
+and an MSE loss the frozen-mean vb term is reported in aux["vb"] and not
+added to the loss (the reference's choice). It takes an explicit `noise=`
 so a test can feed both sides the same noise.
 
 Layout: x is [bs, seqlen, C] as in the JAX package.
@@ -29,11 +35,35 @@ Layout: x is [bs, seqlen, C] as in the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import enum
 import math
 from typing import Callable, Sequence
 
 import numpy as np
 import torch
+
+
+class ModelMeanType(enum.Enum):
+    PREVIOUS_X = "previous_x"
+    START_X = "start_x"
+    EPSILON = "epsilon"
+
+
+class ModelVarType(enum.Enum):
+    FIXED_SMALL = "fixed_small"
+    FIXED_LARGE = "fixed_large"
+    LEARNED = "learned"
+    LEARNED_RANGE = "learned_range"
+
+
+class LossType(enum.Enum):
+    MSE = "mse"
+    RESCALED_MSE = "rescaled_mse"
+    KL = "kl"
+    RESCALED_KL = "rescaled_kl"
+
+
+LEARNED_VARIANCES = (ModelVarType.LEARNED, ModelVarType.LEARNED_RANGE)
 
 
 def get_named_beta_schedule(
@@ -193,6 +223,14 @@ def model_timesteps(sched: DiffusionSchedule, t: torch.Tensor) -> torch.Tensor:
     return sched.timestep_map[t]
 
 
+def q_mean_variance(sched: DiffusionSchedule, x_start, t):
+    """q(x_t | x_0): (mean, variance, log_variance)."""
+    mean = _extract(sched.sqrt_alphas_cumprod, t, x_start.ndim) * x_start
+    variance = _extract(1.0 - sched.alphas_cumprod, t, x_start.ndim)
+    log_variance = _extract(sched.log_one_minus_alphas_cumprod, t, x_start.ndim)
+    return mean, variance, log_variance
+
+
 def q_sample(sched: DiffusionSchedule, x_start, t, noise):
     """Sample q(x_t | x_0)."""
     return (
@@ -230,6 +268,13 @@ def predict_eps_from_xstart(sched: DiffusionSchedule, x_t, t, pred_xstart):
     ) / _extract(sched.sqrt_recipm1_alphas_cumprod, t, x_t.ndim)
 
 
+def predict_xstart_from_xprev(sched: DiffusionSchedule, x_t, t, xprev):
+    return (
+        _extract(1.0 / sched.posterior_mean_coef1, t, x_t.ndim) * xprev
+        - _extract(sched.posterior_mean_coef2 / sched.posterior_mean_coef1, t, x_t.ndim) * x_t
+    )
+
+
 def p_mean_variance(
     model_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
     sched: DiffusionSchedule,
@@ -238,20 +283,56 @@ def p_mean_variance(
     *,
     clip_denoised: bool = False,
     denoised_fn: Callable[[torch.Tensor], torch.Tensor] | None = None,
+    model_mean_type: ModelMeanType = ModelMeanType.START_X,
+    model_var_type: ModelVarType = ModelVarType.FIXED_SMALL,
 ) -> dict[str, torch.Tensor]:
-    """p(x_{t-1} | x_t) for START_X prediction with FIXED_SMALL variance.
-    `model_fn(x, t_model)` closes over the conditioning; t_model is
-    respaced. The predicted x_0 passes through `denoised_fn`, then is
-    clipped to [-1, 1] with `clip_denoised`."""
+    """p(x_{t-1} | x_t). `model_fn(x, t_model)` closes over the
+    conditioning; t_model is respaced. The predicted x_0 passes through
+    `denoised_fn`, then is clipped to [-1, 1] with `clip_denoised`.
+
+    With a learned variance the model emits 2C channels, [mean prediction |
+    variance values] on the last axis (a wrong count raises): LEARNED reads
+    the log variance, LEARNED_RANGE a value in [-1, 1] that interpolates
+    [posterior variance, beta] in log space. FIXED_LARGE takes the betas
+    with beta_0 replaced by posterior_variance[1]."""
     model_output = model_fn(x, model_timesteps(sched, t))
-    variance = _extract(sched.posterior_variance, t, x.ndim)
-    log_variance = _extract(sched.posterior_log_variance_clipped, t, x.ndim)
-    pred_xstart = model_output
-    if denoised_fn is not None:
-        pred_xstart = denoised_fn(pred_xstart)
-    if clip_denoised:
-        pred_xstart = torch.clamp(pred_xstart, -1.0, 1.0)
-    mean, _, _ = q_posterior_mean_variance(sched, pred_xstart, x, t)
+    if model_var_type in LEARNED_VARIANCES:
+        C = x.shape[-1]
+        if model_output.shape[-1] != 2 * C:
+            raise ValueError(f"learned variance expects model output with {2 * C} channels, "
+                             f"got {model_output.shape[-1]}")
+        model_output, var_values = torch.split(model_output, C, dim=-1)
+        if model_var_type == ModelVarType.LEARNED:
+            log_variance = var_values
+        else:
+            min_log = _extract(sched.posterior_log_variance_clipped, t, x.ndim)
+            max_log = _extract(torch.log(sched.betas), t, x.ndim)
+            frac = (var_values + 1) / 2
+            log_variance = frac * max_log + (1 - frac) * min_log
+        variance = torch.exp(log_variance)
+    elif model_var_type == ModelVarType.FIXED_SMALL:
+        variance = _extract(sched.posterior_variance, t, x.ndim)
+        log_variance = _extract(sched.posterior_log_variance_clipped, t, x.ndim)
+    else:  # FIXED_LARGE
+        variance = _extract(torch.cat([sched.posterior_variance[1:2], sched.betas[1:]]), t, x.ndim)
+        log_variance = torch.log(variance)
+
+    def process_xstart(xs):
+        if denoised_fn is not None:
+            xs = denoised_fn(xs)
+        if clip_denoised:
+            xs = torch.clamp(xs, -1.0, 1.0)
+        return xs
+
+    if model_mean_type == ModelMeanType.PREVIOUS_X:
+        pred_xstart = process_xstart(predict_xstart_from_xprev(sched, x, t, model_output))
+        mean = model_output
+    else:
+        pred_xstart = process_xstart(
+            model_output if model_mean_type == ModelMeanType.START_X
+            else predict_xstart_from_eps(sched, x, t, model_output)
+        )
+        mean, _, _ = q_posterior_mean_variance(sched, pred_xstart, x, t)
     return {
         "mean": mean,
         "variance": variance,
@@ -289,10 +370,13 @@ def p_sample(
     denoised_fn=None,
     cond_fn=None,
     const_noise: bool = False,
+    model_mean_type: ModelMeanType = ModelMeanType.START_X,
+    model_var_type: ModelVarType = ModelVarType.FIXED_SMALL,
 ) -> dict[str, torch.Tensor]:
     """One ancestral step x_t -> x_{t-1} with the given unit noise; with
     `const_noise` every sample takes the noise of sample 0."""
-    out = p_mean_variance(model_fn, sched, x, t, clip_denoised=clip_denoised, denoised_fn=denoised_fn)
+    out = p_mean_variance(model_fn, sched, x, t, clip_denoised=clip_denoised, denoised_fn=denoised_fn,
+                          model_mean_type=model_mean_type, model_var_type=model_var_type)
     if const_noise:
         noise = noise[0:1].expand(x.shape)
     nonzero_mask = (t != 0).to(x.dtype).reshape((-1,) + (1,) * (x.ndim - 1))
@@ -361,6 +445,8 @@ def p_sample_loop(
     const_noise: bool = False,
     skip_timesteps: int = 0,
     init_image: torch.Tensor | None = None,
+    model_mean_type: ModelMeanType = ModelMeanType.START_X,
+    model_var_type: ModelVarType = ModelVarType.FIXED_SMALL,
 ) -> torch.Tensor:
     """The ancestral (DDPM) chain, t = T-1-skip_timesteps .. 0. Returns the
     final sample.
@@ -375,7 +461,8 @@ def p_sample_loop(
                                 skip_timesteps=skip_timesteps, init_image=init_image)
     for out in _p_sample_steps(model_fn, sched, img, t_start, device=device, generator=generator,
                                step_noise=step_noise, clip_denoised=clip_denoised,
-                               denoised_fn=denoised_fn, cond_fn=cond_fn, const_noise=const_noise):
+                               denoised_fn=denoised_fn, cond_fn=cond_fn, const_noise=const_noise,
+                               model_mean_type=model_mean_type, model_var_type=model_var_type):
         img = out["sample"]
     return img
 
@@ -397,6 +484,8 @@ def p_sample_loop_trajectory(
     init_image: torch.Tensor | None = None,
     dump_steps: Sequence[int] | None = None,
     with_pred_xstart: bool = False,
+    model_mean_type: ModelMeanType = ModelMeanType.START_X,
+    model_var_type: ModelVarType = ModelVarType.FIXED_SMALL,
 ) -> dict[str, torch.Tensor]:
     """`p_sample_loop` that also returns the chain's states: {"sample":
     [bs, ...], "trajectory": [S, bs, ...] each step's output in chain order
@@ -411,7 +500,7 @@ def p_sample_loop_trajectory(
     for i, out in enumerate(_p_sample_steps(
             model_fn, sched, img, t_start, device=device, generator=generator, step_noise=step_noise,
             clip_denoised=clip_denoised, denoised_fn=denoised_fn, cond_fn=cond_fn,
-            const_noise=const_noise)):
+            const_noise=const_noise, model_mean_type=model_mean_type, model_var_type=model_var_type)):
         img = out["sample"]
         if i in wanted:
             traj[i] = img
@@ -439,6 +528,7 @@ def ddim_sample_loop(
     denoised_fn=None,
     cond_fn=None,
     eta: float = 0.0,
+    model_mean_type: ModelMeanType = ModelMeanType.START_X,
 ) -> torch.Tensor:
     """The DDIM chain, t = T-1 .. 0, with
     sigma = eta * sqrt((1 - ab_prev) / (1 - ab)) * sqrt(1 - ab / ab_prev)
@@ -450,7 +540,8 @@ def ddim_sample_loop(
     img = _randn(shape, generator, device) if noise is None else noise.to(device)
     for i, t_scalar in enumerate(range(T - 1, -1, -1)):
         t = _full_t(t_scalar, shape[0], device)
-        out = p_mean_variance(model_fn, sched, img, t, clip_denoised=clip_denoised, denoised_fn=denoised_fn)
+        out = p_mean_variance(model_fn, sched, img, t, clip_denoised=clip_denoised, denoised_fn=denoised_fn,
+                              model_mean_type=model_mean_type)
         if cond_fn is not None:
             out = condition_score(cond_fn, sched, out, img, t)
         eps = predict_eps_from_xstart(sched, img, t, out["pred_xstart"])
@@ -483,6 +574,7 @@ def plms_sample_loop(
     noise: torch.Tensor | None = None,
     clip_denoised: bool = False,
     order: int = 2,
+    model_mean_type: ModelMeanType = ModelMeanType.START_X,
 ) -> torch.Tensor:
     """Pseudo linear multistep (PLMS), t = T-1 .. 0; deterministic given
     `noise` (x_T). With order > 1 the first step is the improved-Euler pair
@@ -498,7 +590,8 @@ def plms_sample_loop(
     ndim = len(shape)
 
     def get_eps_x0(x, t):
-        out = p_mean_variance(model_fn, sched, x, t, clip_denoised=clip_denoised)
+        out = p_mean_variance(model_fn, sched, x, t, clip_denoised=clip_denoised,
+                              model_mean_type=model_mean_type)
         return predict_eps_from_xstart(sched, x, t, out["pred_xstart"]), out["pred_xstart"]
 
     def ab_next_of(t_next):
@@ -549,6 +642,8 @@ def p_sample_loop_parallel(
     clip_denoised: bool = False,
     denoised_fn=None,
     cond_fn=None,
+    model_mean_type: ModelMeanType = ModelMeanType.START_X,
+    model_var_type: ModelVarType = ModelVarType.FIXED_SMALL,
     return_info: bool = False,
 ):
     """Picard-parallel ancestral sampling (ParaDiGMS, arXiv:2305.16317).
@@ -600,7 +695,8 @@ def p_sample_loop_parallel(
         t_rows = ts_win.repeat_interleave(bs)
         x = buf[:W].reshape(rows)
         out = p_mean_variance(model_fn, sched, x, t_rows, clip_denoised=clip_denoised,
-                              denoised_fn=denoised_fn)
+                              denoised_fn=denoised_fn, model_mean_type=model_mean_type,
+                              model_var_type=model_var_type)
         mean = out["mean"]
         if cond_fn is not None:
             mean = condition_mean(cond_fn, sched, out, x, t_rows)
@@ -635,21 +731,27 @@ def sample_loop(
     noise: dict[str, torch.Tensor] | None = None,
     parallel_window: int = 32,
     parallel_tol: float = 1e-2,
+    model_mean_type: ModelMeanType = ModelMeanType.START_X,
+    model_var_type: ModelVarType = ModelVarType.FIXED_SMALL,
 ) -> torch.Tensor:
     """The named sampler's chain with the TaMF settings (no clipping; DDIM
     at eta 0, PLMS at order 2). `noise` holds the sampler's own noise
     keywords, e.g. {"noise": x_T, "step_noise": ...} for "ddpm" or
-    {"noise": x_T, "t_noise": ...} for "parallel"."""
-    kw = dict(device=device, generator=generator, **(noise or {}))
+    {"noise": x_T, "t_noise": ...} for "parallel". DDIM and PLMS take the
+    mean type only (their variance is FIXED_SMALL, as in JAX): another
+    variance type raises there."""
+    kw = dict(device=device, generator=generator, model_mean_type=model_mean_type, **(noise or {}))
+    if sampler in ("ddim", "plms") and model_var_type != ModelVarType.FIXED_SMALL:
+        raise ValueError(f"sampler {sampler!r} takes no model_var_type (got {model_var_type})")
     if sampler == "ddpm":
-        return p_sample_loop(model_fn, sched, shape, **kw)
+        return p_sample_loop(model_fn, sched, shape, model_var_type=model_var_type, **kw)
     if sampler == "ddim":
         return ddim_sample_loop(model_fn, sched, shape, **kw)
     if sampler == "plms":
         return plms_sample_loop(model_fn, sched, shape, **kw)
     if sampler == "parallel":
         return p_sample_loop_parallel(model_fn, sched, shape, window=parallel_window,
-                                      tol=parallel_tol, **kw)
+                                      tol=parallel_tol, model_var_type=model_var_type, **kw)
     raise ValueError(f"unknown sampler {sampler!r}: one of {SAMPLERS}")
 
 
@@ -658,13 +760,20 @@ def sample_loop(
 # ---------------------------------------------------------------------------
 
 
+def sum_flat(x: torch.Tensor) -> torch.Tensor:
+    return torch.sum(x, dim=tuple(range(1, x.ndim)))
+
+
+def mean_flat(x: torch.Tensor) -> torch.Tensor:
+    return torch.mean(x, dim=tuple(range(1, x.ndim)))
+
+
 def masked_l2(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Per-sample masked MSE over [bs, seqlen, C] with mask [bs, seqlen]:
     sum((a-b)^2 * mask) / (sum(mask) * C)."""
     m = mask[..., None].to(a.dtype)
-    dims = tuple(range(1, a.ndim))
-    loss = torch.sum((a - b) ** 2 * m, dim=dims)
-    non_zero = torch.sum(m, dim=dims) * a.shape[-1]
+    loss = sum_flat((a - b) ** 2 * m)
+    non_zero = sum_flat(m) * a.shape[-1]
     return loss / torch.clamp_min(non_zero, 1e-8)
 
 
@@ -677,14 +786,139 @@ def training_losses(
     *,
     noise: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
+    model_mean_type: ModelMeanType = ModelMeanType.START_X,
+    model_var_type: ModelVarType = ModelVarType.FIXED_SMALL,
+    loss_type: LossType = LossType.MSE,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-    """Masked-MSE diffusion loss for START_X prediction: returns (per-sample
-    loss [bs], aux with x_t, model_output and target). `noise` is the unit
-    noise of q_sample, drawn from `generator` when not given."""
+    """The diffusion loss per sample [bs] and an aux dict. `noise` is the
+    unit noise of q_sample, drawn from `generator` when not given.
+
+    MSE / RESCALED_MSE: the masked MSE of the model output (its mean half
+    with a learned variance) against the mean type's target; aux holds x_t,
+    model_output and target, and with a learned variance "vb", the
+    variational term with the mean prediction detached (x T/1000 with
+    RESCALED_MSE), reported and not added to the loss. KL / RESCALED_KL
+    (x T): the loss is the variational term; aux holds x_t and
+    pred_xstart."""
     if noise is None:
         noise = torch.randn(x_start.shape, generator=generator, device=x_start.device,
                             dtype=x_start.dtype)
     x_t = q_sample(sched, x_start, t, noise)
+    if loss_type in (LossType.KL, LossType.RESCALED_KL):
+        vb = vb_terms_bpd(model_fn, sched, x_start, x_t, t, model_mean_type=model_mean_type,
+                          model_var_type=model_var_type)
+        loss = vb["output"]
+        if loss_type == LossType.RESCALED_KL:
+            loss = loss * sched.num_timesteps
+        return loss, {"x_t": x_t, "pred_xstart": vb["pred_xstart"]}
+
     model_output = model_fn(x_t, model_timesteps(sched, t))
-    mse = masked_l2(x_start, model_output, mask)
-    return mse, {"x_t": x_t, "model_output": model_output, "target": x_start}
+    aux = {"x_t": x_t}
+    if model_var_type in LEARNED_VARIANCES:
+        model_output, var_values = torch.split(model_output, x_start.shape[-1], dim=-1)
+        frozen = torch.cat([model_output.detach(), var_values], dim=-1)
+        vb = vb_terms_bpd(lambda *_: frozen, sched, x_start, x_t, t, model_mean_type=model_mean_type,
+                          model_var_type=model_var_type)["output"]
+        if loss_type == LossType.RESCALED_MSE:
+            vb = vb * (sched.num_timesteps / 1000.0)
+        aux["vb"] = vb
+    if model_mean_type == ModelMeanType.START_X:
+        target = x_start
+    elif model_mean_type == ModelMeanType.EPSILON:
+        target = noise
+    else:
+        target = q_posterior_mean_variance(sched, x_start, x_t, t)[0]
+    mse = masked_l2(target, model_output, mask)
+    aux.update(model_output=model_output, target=target)
+    return mse, aux
+
+
+# ---------------------------------------------------------------------------
+# The variational bound (losses.py:12-68, gd.py:1079-1262)
+# ---------------------------------------------------------------------------
+
+
+def normal_kl(mean1, logvar1, mean2, logvar2):
+    """KL(N(mean1, e^logvar1) || N(mean2, e^logvar2)), elementwise."""
+    return 0.5 * (
+        -1.0 + logvar2 - logvar1 + torch.exp(logvar1 - logvar2)
+        + ((mean1 - mean2) ** 2) * torch.exp(-logvar2)
+    )
+
+
+def approx_standard_normal_cdf(x):
+    return 0.5 * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi) * (x + 0.044715 * x**3)))
+
+
+def discretized_gaussian_log_likelihood(x, *, means, log_scales):
+    """Log-likelihood of x in [-1, 1] under a Gaussian discretised to bins
+    of width 2/255 (the edge bins open)."""
+    centered_x = x - means
+    inv_stdv = torch.exp(-log_scales)
+    cdf_plus = approx_standard_normal_cdf(inv_stdv * (centered_x + 1.0 / 255.0))
+    cdf_min = approx_standard_normal_cdf(inv_stdv * (centered_x - 1.0 / 255.0))
+    log_cdf_plus = torch.log(torch.clamp_min(cdf_plus, 1e-12))
+    log_one_minus_cdf_min = torch.log(torch.clamp_min(1.0 - cdf_min, 1e-12))
+    log_cdf_delta = torch.log(torch.clamp_min(cdf_plus - cdf_min, 1e-12))
+    return torch.where(x < -0.999, log_cdf_plus,
+                       torch.where(x > 0.999, log_one_minus_cdf_min, log_cdf_delta))
+
+
+def vb_terms_bpd(model_fn, sched: DiffusionSchedule, x_start, x_t, t, *, clip_denoised: bool = False,
+                 model_mean_type: ModelMeanType = ModelMeanType.START_X,
+                 model_var_type: ModelVarType = ModelVarType.FIXED_SMALL) -> dict[str, torch.Tensor]:
+    """KL(q(x_{t-1} | x_t, x_0) || p(x_{t-1} | x_t)) in bits per dimension,
+    the decoder NLL where t = 0: {"output" [bs], "pred_xstart"}."""
+    true_mean, _, true_log_var = q_posterior_mean_variance(sched, x_start, x_t, t)
+    out = p_mean_variance(model_fn, sched, x_t, t, clip_denoised=clip_denoised,
+                          model_mean_type=model_mean_type, model_var_type=model_var_type)
+    kl = mean_flat(normal_kl(true_mean, true_log_var, out["mean"], out["log_variance"])) / math.log(2.0)
+    decoder_nll = -discretized_gaussian_log_likelihood(
+        x_start, means=out["mean"], log_scales=0.5 * out["log_variance"]
+    )
+    decoder_nll = mean_flat(decoder_nll) / math.log(2.0)
+    return {"output": torch.where(t == 0, decoder_nll, kl), "pred_xstart": out["pred_xstart"]}
+
+
+def prior_bpd(sched: DiffusionSchedule, x_start) -> torch.Tensor:
+    """KL(q(x_T | x_0) || N(0, I)) in bits per dimension, [bs]."""
+    t = torch.full((x_start.shape[0],), sched.num_timesteps - 1, dtype=torch.int64, device=x_start.device)
+    qt_mean, _, qt_log_var = q_mean_variance(sched, x_start, t)
+    kl_prior = normal_kl(qt_mean, qt_log_var, torch.zeros_like(qt_mean), torch.zeros_like(qt_log_var))
+    return mean_flat(kl_prior) / math.log(2.0)
+
+
+def calc_bpd_loop(
+    model_fn,
+    sched: DiffusionSchedule,
+    x_start: torch.Tensor,
+    *,
+    generator: torch.Generator | None = None,
+    clip_denoised: bool = False,
+    noise: torch.Tensor | None = None,
+    model_mean_type: ModelMeanType = ModelMeanType.START_X,
+) -> dict[str, torch.Tensor]:
+    """The whole variational bound, one model call per timestep, t = T-1 ..
+    0. `noise` [T, *x_start.shape] is each step's q_sample noise in that
+    order (index 0 is t = T-1), drawn from `generator` when not given.
+
+    Returns {"total_bpd" [bs], "prior_bpd" [bs], "vb" [bs, T], "xstart_mse"
+    [bs, T], "mse" [bs, T]}; column 0 of the [bs, T] arrays is t = T-1."""
+    T = sched.num_timesteps
+    bs = x_start.shape[0]
+    _check_shape("noise", noise, (T,) + tuple(x_start.shape))
+    vb, xstart_mse, mse = [], [], []
+    for i, t_scalar in enumerate(range(T - 1, -1, -1)):
+        nz = (torch.randn(x_start.shape, generator=generator, device=x_start.device, dtype=x_start.dtype)
+              if noise is None else noise[i].to(x_start.device))
+        t = _full_t(t_scalar, bs, x_start.device)
+        x_t = q_sample(sched, x_start, t, nz)
+        out = vb_terms_bpd(model_fn, sched, x_start, x_t, t, clip_denoised=clip_denoised,
+                           model_mean_type=model_mean_type)
+        vb.append(out["output"])
+        xstart_mse.append(mean_flat((out["pred_xstart"] - x_start) ** 2))
+        eps = predict_eps_from_xstart(sched, x_t, t, out["pred_xstart"])
+        mse.append(mean_flat((eps - nz) ** 2))
+    vb, xstart_mse, mse = (torch.stack(a, dim=1) for a in (vb, xstart_mse, mse))
+    pb = prior_bpd(sched, x_start)
+    return {"total_bpd": vb.sum(dim=1) + pb, "prior_bpd": pb, "vb": vb, "xstart_mse": xstart_mse, "mse": mse}

@@ -1,10 +1,9 @@
 """Config-entry registration shared by the launch CLIs (copy of
-oakink2_tamf_tpu/launch/param.py, plus `runtime.device` and the
-`fused_cull` choice of `train.dist_impl`; mirrors reference
-launch/param/{base,mano,model,loss,loss_refine}.py — the schema, not the
-code). The same YAMLs drive both packages; entries about the TPU (chunk,
-h2o_backend, remat, compute_dtype) are accepted and documented where the
-port reads them."""
+oakink2_tamf_tpu/launch/param.py, plus `runtime.device`, the `fused_cull`
+choice of `train.dist_impl` and train_g's `runtime.profile_dir`; mirrors
+reference launch/param/{base,mano,model,loss,loss_refine}.py — the schema,
+not the code). The same YAMLs drive both packages; entries about the TPU (chunk,
+h2o_backend) are accepted and documented where the port reads them."""
 
 from __future__ import annotations
 
@@ -40,6 +39,11 @@ def reg_base_param(reg: ConfigRegistry) -> None:
         reg.register("batch_size", prefix=split, category=int, default=64 if split == "train" else 8)
 
 
+def reg_profile_param(reg: ConfigRegistry) -> None:
+    reg.register("profile_dir", prefix="runtime", category=str, default="",
+                 desc="write a device trace of train steps 11-20 here (or set TAMF_PROFILE_DIR)")
+
+
 def reg_mano_param(reg: ConfigRegistry) -> None:
     reg.register("mano_path", prefix="mano", category=str, default="",
                  desc="MANO assets root (synthetic stand-in when empty)")
@@ -61,7 +65,7 @@ def reg_model_param(reg: ConfigRegistry) -> None:
                  desc="rematerialize trunk layers (memory for FLOPs)")
     reg.register("compute_dtype", prefix="model", category=str, default="float32",
                  choices=["float32", "bfloat16"],
-                 desc="trunk matmul dtype (the port runs float32 only)")
+                 desc="trunk compute dtype; bfloat16 = the trunk's matmuls on the tensor cores")
 
 
 def reg_train_param(reg: ConfigRegistry, default_epochs: int = 400) -> None:

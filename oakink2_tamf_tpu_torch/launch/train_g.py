@@ -9,13 +9,16 @@ default; without a GPU the run raises unless told "cpu").
 `train.data.cache_gt_geom` precomputes the GT side of the extra loss once
 per segment (data/target_cache.GTGeomCache). `train.dist_impl fused_cull`
 takes the region-culled loss kernel, its mask tiled at `train.chunk`
-points (the other routes' kernels take no tile). Not ported yet: the
-profiler trace hook.
+points (the other routes' kernels take no tile). `runtime.profile_dir`
+(or the TAMF_PROFILE_DIR environment variable) writes a device trace of
+train steps 11-20 there as Chrome-trace JSON (runtime/profiler.py); a run
+that ends inside that span stops the trace and writes it too.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import time
 
 import numpy as np
@@ -32,21 +35,20 @@ from ..models.refine_r import stack_mano_models
 from ..parallel import train as PT
 from ..runtime.ckpt import load_checkpoint, save_train_state
 from ..runtime.logging import MetricWriter
-from ..runtime.profiler import StepTimer
+from ..runtime.profiler import DeviceTrace, StepTimer
 from . import common, param
 
 _logger = logging.getLogger(__name__)
 
 PROG = "train_g"
+PROFILE_SPAN = (10, 20)  # the trace starts before step 11 and stops after step 20
 
 
 def build_model(reg, activation: str | None = None) -> InteractionSegmentMDM:
-    """G from the `model.*` entries. `activation` overrides model.activation
-    (ported reference checkpoints need torch's exact-erf "gelu_exact")."""
+    """G from the `model.*` entries (model.remat and model.compute_dtype
+    included). `activation` overrides model.activation (ported reference
+    checkpoints need torch's exact-erf "gelu_exact")."""
     m = reg.select("model")
-    if bool(m.get("remat", False)) or str(m.get("compute_dtype", "float32")) != "float32":
-        raise NotImplementedError("the port trains G in float32 without remat "
-                                  "(model.remat false, model.compute_dtype float32)")
     return InteractionSegmentMDM(
         MDMConfig(
             input_dim=int(m.get("input_dim", 99)),
@@ -60,6 +62,8 @@ def build_model(reg, activation: str | None = None) -> InteractionSegmentMDM:
             dropout=float(m.get("dropout", 0.1)),
             activation=activation or str(m.get("activation", "gelu")),
             cond_mask_prob=float(m.get("cond_mask_prob", 0.0)),
+            remat=bool(m.get("remat", False)),
+            compute_dtype=str(m.get("compute_dtype", "float32")),
         )
     )
 
@@ -95,6 +99,7 @@ def main(argv=None) -> PT.TrainState:
         PROG,
         [
             param.reg_base_param,
+            param.reg_profile_param,
             param.reg_mano_param,
             param.reg_model_param,
             lambda r: param.reg_train_param(r, 400),
@@ -189,46 +194,58 @@ def main(argv=None) -> PT.TrainState:
     num_epoch = int(train_cfg.get("num_epoch", 400))
     record_freq = int(train_cfg.get("record_freq", 20))
     batch_size = int(train_cfg.get("batch_size", 64))
+    profile_dir = runtime.get("profile_dir") or os.environ.get("TAMF_PROFILE_DIR")
+    profile = None
     timer = StepTimer()
     global_step = 0
-    for epoch_id in range(num_epoch):
-        train_loader.set_epoch(epoch_id)
-        t_epoch = time.time()
-        last_metrics: dict[str, float] = {}
-        metrics = {}
-        for batch in train_loader:
-            db = common.device_batch(common.attach_text_emb(batch, clip), device)
-            if resampler is not None:
-                t, w = resampler.sample(db["pose_repr"].shape[0], generator=host_generator, device=device)
-                db = dict(db, t=t, t_weights=w)
-            metrics = step_fn(state, db, generator=generator)
-            global_step += 1
-            timer.tick()
-            if resampler is not None:
-                resampler.update_with_losses(metrics["per_sample_t"], metrics["per_sample_mse"])
-            if global_step % 50 == 0:
+    try:
+        for epoch_id in range(num_epoch):
+            train_loader.set_epoch(epoch_id)
+            t_epoch = time.time()
+            last_metrics: dict[str, float] = {}
+            metrics = {}
+            for batch in train_loader:
+                db = common.device_batch(common.attach_text_emb(batch, clip), device)
+                if resampler is not None:
+                    t, w = resampler.sample(db["pose_repr"].shape[0], generator=host_generator, device=device)
+                    db = dict(db, t=t, t_weights=w)
+                if profile_dir and global_step == PROFILE_SPAN[0]:
+                    profile = DeviceTrace(profile_dir, device).start()
+                metrics = step_fn(state, db, generator=generator)
+                global_step += 1
+                timer.tick()
+                if profile is not None and global_step == PROFILE_SPAN[1]:
+                    _logger.info("profiler trace (steps %d-%d) -> %s", PROFILE_SPAN[0] + 1, PROFILE_SPAN[1],
+                                 profile.stop())
+                    profile = None
+                if resampler is not None:
+                    resampler.update_with_losses(metrics["per_sample_t"], metrics["per_sample_mse"])
+                if global_step % 50 == 0:
+                    last_metrics = _scalars(metrics)
+                    writer.add_scalars(last_metrics, global_step)
+            if not last_metrics and metrics:
                 last_metrics = _scalars(metrics)
-                writer.add_scalars(last_metrics, global_step)
-        if not last_metrics and metrics:
-            last_metrics = _scalars(metrics)
-        _logger.info(
-            "train epoch %04d conclude | loss: %f | %.1fs | %.1f samples/s",
-            epoch_id, last_metrics.get("loss", float("nan")), time.time() - t_epoch,
-            timer.throughput(batch_size),
-        )
-        if run_dir.commit and (epoch_id % record_freq == 0 or epoch_id == num_epoch - 1):
-            path = save_train_state(run_dir.sub("save"), epoch_id, state)
-            _logger.info("saved %s", path)
-        if val_freq and (epoch_id == 0 or (epoch_id + 1) % val_freq == 0 or epoch_id == num_epoch - 1):
-            for split, loader in eval_loaders.items():
-                terms = evaluate_g(
-                    eval_sampler, model, mano_stack, assets, extra_cfg, loader, clip, device, generator,
-                    max_batches=int(train_cfg.get("eval_max_batches", 0) or 0),
-                )
-                _logger.info("%s epoch %04d sample eval | %s", split, epoch_id,
-                             " | ".join(f"{k}: {v:f}" for k, v in sorted(terms.items())))
-                for k, v in terms.items():
-                    writer.add_scalar(f"{split}/{k}", v, global_step)
+            _logger.info(
+                "train epoch %04d conclude | loss: %f | %.1fs | %.1f samples/s",
+                epoch_id, last_metrics.get("loss", float("nan")), time.time() - t_epoch,
+                timer.throughput(batch_size),
+            )
+            if run_dir.commit and (epoch_id % record_freq == 0 or epoch_id == num_epoch - 1):
+                path = save_train_state(run_dir.sub("save"), epoch_id, state)
+                _logger.info("saved %s", path)
+            if val_freq and (epoch_id == 0 or (epoch_id + 1) % val_freq == 0 or epoch_id == num_epoch - 1):
+                for split, loader in eval_loaders.items():
+                    terms = evaluate_g(
+                        eval_sampler, model, mano_stack, assets, extra_cfg, loader, clip, device, generator,
+                        max_batches=int(train_cfg.get("eval_max_batches", 0) or 0),
+                    )
+                    _logger.info("%s epoch %04d sample eval | %s", split, epoch_id,
+                                 " | ".join(f"{k}: {v:f}" for k, v in sorted(terms.items())))
+                    for k, v in terms.items():
+                        writer.add_scalar(f"{split}/{k}", v, global_step)
+    finally:
+        if profile is not None:  # the run ended inside the span
+            _logger.info("profiler trace (steps %d-%d) -> %s", PROFILE_SPAN[0] + 1, global_step, profile.stop())
     writer.close()
     return state
 

@@ -55,12 +55,10 @@ PROG = "train_r"
 
 
 def build_refine_net(reg, activation: str | None = None) -> SegmentRefineNet:
-    """R from the `model.*` entries. `activation` overrides model.activation
-    (ported reference checkpoints need torch's exact-erf "gelu_exact")."""
+    """R from the `model.*` entries (model.remat and model.compute_dtype
+    included). `activation` overrides model.activation (ported reference
+    checkpoints need torch's exact-erf "gelu_exact")."""
     m = reg.select("model")
-    if bool(m.get("remat", False)) or str(m.get("compute_dtype", "float32")) != "float32":
-        raise NotImplementedError("the port trains R in float32 without remat "
-                                  "(model.remat false, model.compute_dtype float32)")
     return SegmentRefineNet(
         RefineConfig(
             input_dim=int(m.get("input_dim", 99)),
@@ -73,6 +71,8 @@ def build_refine_net(reg, activation: str | None = None) -> SegmentRefineNet:
             num_heads=int(m.get("num_heads", 4)),
             dropout=float(m.get("dropout", 0.1)),
             activation=activation or str(m.get("activation", "gelu")),
+            remat=bool(m.get("remat", False)),
+            compute_dtype=str(m.get("compute_dtype", "float32")),
         )
     )
 

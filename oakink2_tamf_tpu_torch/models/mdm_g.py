@@ -46,6 +46,8 @@ class MDMConfig:
     activation: str = "gelu"
     clip_dim: int = 512
     cond_mask_prob: float = 0.0
+    remat: bool = False  # checkpoint each trunk layer (memory for FLOPs)
+    compute_dtype: str = "float32"  # "bfloat16": the trunk computes in bf16 (models/trunk.py)
 
     @classmethod
     def arch_mdm(cls) -> "MDMConfig":
@@ -73,7 +75,8 @@ class InteractionSegmentMDM(nn.Module):
         self.input_merge = input_merge(2, d)
         self.sequence_pos_encoder = PositionalEncoding(d, cfg.dropout)
         self.seqTransEncoder = TransformerEncoder(
-            d, cfg.num_heads, cfg.ff_size, cfg.num_layers, cfg.dropout, cfg.activation
+            d, cfg.num_heads, cfg.ff_size, cfg.num_layers, cfg.dropout, cfg.activation,
+            remat=cfg.remat, compute_dtype=cfg.compute_dtype,
         )
         self.output_process = OutputProcess(d, cfg.input_dim)
 

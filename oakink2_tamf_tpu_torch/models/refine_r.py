@@ -45,6 +45,8 @@ class RefineConfig:
     dropout: float = 0.1
     activation: str = "gelu"
     n_hand_verts: int = 778
+    remat: bool = False  # checkpoint each trunk layer (memory for FLOPs)
+    compute_dtype: str = "float32"  # "bfloat16": the trunk computes in bf16 (models/trunk.py)
 
 
 NUM_COND_TOKENS_R = 3
@@ -64,7 +66,8 @@ class SegmentRefineNet(nn.Module):
         self.input_merge = input_merge(3, d)
         self.sequence_pos_encoder = PositionalEncoding(d, cfg.dropout)
         self.seqTransEncoder = TransformerEncoder(
-            d, cfg.num_heads, cfg.ff_size, cfg.num_layers, cfg.dropout, cfg.activation
+            d, cfg.num_heads, cfg.ff_size, cfg.num_layers, cfg.dropout, cfg.activation,
+            remat=cfg.remat, compute_dtype=cfg.compute_dtype,
         )
         self.output_process = OutputProcess(d, cfg.input_dim)
 

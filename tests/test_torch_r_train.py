@@ -348,5 +348,3 @@ def test_train_r_refuses_what_is_not_ported(tmp_path, monkeypatch):
     # real data is ported: without a cache_dict or a toolkit there is nothing to load
     with pytest.raises(ValueError, match="need cache_dict"):
         train_r.main(base + ["--data.synthetic", "false"])
-    with pytest.raises(NotImplementedError, match="float32"):
-        train_r.main(base + ["--model.compute_dtype", "bfloat16"])
