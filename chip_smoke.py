@@ -176,7 +176,21 @@ Phases (any failure exits non-zero and prints no result line):
    float64 witness on every segment's GT and refined hands (1e-7 and 1e-6
    m^2, no frame on the other side of 5 mm); CR's squared minima GPU vs
    CPU within 1e-7 m^2, the FID activations within 1e-4, the triangle hash
-   built from the port's own source.
+   built from the port's own source;
+23. the process group (parallel/mesh.py): (a) one rank on NCCL, the
+   full-width fused G step (#6, #8) and the all-pairs R step (#1, #4) at
+   dropout 0 against the plain step on the same weights, batch, t and
+   noise (loss rtol 1e-6, gradients 1e-6 of their norms), 3 timed steps of
+   each between 3 plain ones before the group and 3 after, peak GiB, the
+   gradient all-reduce alone and its share of the step (dist_cards.py runs
+   these cells across cards); (b) two processes sharing cuda:0 on gloo,
+   32 of the 64 rows each, the same two steps: losses within rtol 1e-5 of
+   (a)'s and each gradient within 1e-5 of its norm, the ranks' parameters
+   bitwise equal after 2 steps, each rank's launch counts; (c)
+   launch/train_r.main on two ranks through torchrun's environment, both
+   on cuda:0 over gloo, kernels built cold by both into one dir, a shared
+   target-h2o cache dir: parameters bitwise equal, the cache complete,
+   save/ on rank 0 alone. A rank that fails fails the run.
 
 The line before the last is the card's name and power limit
 (nvidia-smi); before it, one JSON line with every kernel's numbers. The
@@ -4047,6 +4061,324 @@ def profile_entry_point() -> None:
     require(n6 > 0 and n8 > 0, f"the profiler trace lacks #6 ({n6}) or #8 ({n8}) device events")
 
 
+# ---------------------------------------------------------------------------
+# the process group (parallel/mesh.py): one rank on NCCL, two ranks sharing
+# the card on gloo, train_r.main on two ranks
+# ---------------------------------------------------------------------------
+
+DIST_REL = 1e-5  # loss rtol and each gradient's relative norm, W ranks against one rank
+DIST_TIMEOUT_S = 300
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _dist_cells(dev):
+    """The full-width G cell (arch_mdm_l, fused route) and the all-pairs R
+    cell (arch_refine, 2048 points) of the process-group phases, at dropout
+    0 (ranks draw their masks per rank): ((g_state, g_step, g_batch,
+    g_noise), (r_state, r_step, r_batch)), the same weights, batches,
+    timesteps and noise in every process."""
+    import torch
+
+    from oakink2_tamf_tpu_torch.models.clip_text import FrozenClipText
+    from oakink2_tamf_tpu_torch.models.mdm_g import MDMConfig
+    from oakink2_tamf_tpu_torch.models.refine_r import RefineConfig
+
+    g_state, g_step, mano = _g_training(dev, dataclasses.replace(MDMConfig.arch_mdm_l(), dropout=0.0), "auto", seed=21)
+    gdb = _train_batch(TRAIN_BS, TRAIN_L, TRAIN_NOBJ, TRAIN_P, seed=11, clip=FrozenClipText(device=dev), device=dev)
+    gen = torch.Generator().manual_seed(5)
+    gdb["t"] = torch.randint(0, 1000, (TRAIN_BS,), generator=gen).to(dev)
+    gdb["t_weights"] = torch.ones(TRAIN_BS, device=dev)
+    noise = torch.randn((TRAIN_BS, TRAIN_L, 99), generator=gen).to(dev)
+    r_state, r_step, mano, _ = _r_training(dev, RefineConfig(dropout=0.0), "auto", seed=23)
+    rdb, _ = _r_batch(TRAIN_BS, TRAIN_L, TRAIN_NOBJ, R_ALL_PAIRS_P, 11, mano, dev)
+    return (g_state, g_step, gdb, noise), (r_state, r_step, rdb)
+
+
+def _grads(state) -> dict:
+    return {k: p.grad.detach().cpu().clone() for k, p in state.model.named_parameters() if p.grad is not None}
+
+
+def _params_digest(state) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, p in state.model.named_parameters():
+        h.update(k.encode() + p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _grad_gap_rel(got: dict, want: dict) -> tuple[float, str]:
+    """The largest ||got - want|| / ||want|| over the tensors, a tensor's
+    norm floored at 1e-6 of the global norm (a gradient that is rounding
+    noise around 0, attention's key bias, has no relative error)."""
+    import torch
+
+    total = float(torch.sqrt(sum((g.double() ** 2).sum() for g in want.values())))
+    worst, name = 0.0, ""
+    require(set(got) == set(want), f"gradient names differ: {sorted(set(got) ^ set(want))[:4]}")
+    for k, w in want.items():
+        rel = float((got[k].double() - w.double()).norm()) / max(float(w.double().norm()), 1e-6 * total)
+        if rel > worst:
+            worst, name = rel, k
+    return worst, name
+
+
+def group_one_rank() -> dict:
+    """(a) The full-width fused G step and the all-pairs R step under a
+    process group of one rank on NCCL, against the plain step (no group) on
+    the same weights, batch, t and noise: loss rtol 1e-6 and each gradient
+    within 1e-6 of its norm (the same kernels; MANO's backward adds with
+    atomics); 3 timed steps under the group, with 3 plain steps before the
+    group and 3 after it (the card's drift between them); #6/#8 (G) and
+    #1/#4 (R) once per step, the peak GiB, and the gradient all-reduce
+    alone. Returns the one-rank losses and gradients that (b) is held to."""
+    import torch
+
+    from oakink2_tamf_tpu_torch.ops import chamfer_loss as CL
+    from oakink2_tamf_tpu_torch.ops import chamfer_nn as NN
+    from oakink2_tamf_tpu_torch.ops import chamfer_signed as CS
+    from oakink2_tamf_tpu_torch.parallel import mesh
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    require(not mesh.is_live(), "a process group is already live")
+    (g_state, g_step, gdb, noise), (r_state, r_step, rdb) = _dist_cells(dev)
+    cells = {"G": (g_state, lambda: g_step(g_state, gdb, noise=noise), {"nn_signed": CS.KERNEL, "dist_loss": CL.KERNEL}),
+             "R": (r_state, lambda: r_step(r_state, rdb), {"h2o_nn": NN.KERNEL, "h2o_nn_dvec": NN.DVEC_KERNEL})}
+    plain = {}
+    for label, (state, call, _) in cells.items():
+        init = {k: v.clone() for k, v in state.model.state_dict().items()}
+        m = call()
+        plain[label] = (float(m["loss"]), _grads(state), _timed_steps(call)[0])
+        state.model.load_state_dict(init)  # the group's run starts from the same weights
+        state.optimizer = type(state.optimizer)(state.model.named_parameters())
+        state.step = 0
+    mesh.init_distributed(backend="nccl", init_method=f"tcp://localhost:{_free_port()}", world_size=1, rank=0,
+                          device=dev)
+    out = {}
+    try:
+        for label, (state, call, kernels) in cells.items():
+            m = call()
+            loss, grads = float(m["loss"]), _grads(state)
+            lp, gp, _ = plain[label]
+            gap, name = _grad_gap_rel(grads, gp)
+            require(abs(loss - lp) <= 1e-6 * abs(lp), f"(a) {label}: loss {loss} under the group vs {lp} plain")
+            require(gap <= 1e-6, f"(a) {label}: gradient {name} {gap:.3e} of its norm from the plain step's")
+            _zero_counts(kernels)
+            step_s, times, _, peak = _timed_steps(call)
+            counts = {n: k.launches for n, k in kernels.items()}
+            require(all(v == 3 for v in counts.values()), f"(a) {label}: launches {counts} in 3 steps")
+            params = state.optimizer.params
+            ar_ms = cuda_time_ms(lambda: mesh.all_reduce_grads_(params), reps=10, warmup=2)
+            out[label] = dict(loss=loss, grads=grads, step_s=step_s, steps_s=times, plain_step_s=plain[label][2],
+                              allreduce_ms=ar_ms, peak_gib=peak, launches=counts,
+                              bitwise=all(torch.equal(grads[k], gp[k]) for k in gp), grad_gap=gap,
+                              elements=sum(p.numel() for p in params))
+    finally:
+        torch.distributed.destroy_process_group()
+    for label, (state, call, _) in cells.items():
+        o = out[label]
+        o["plain_after_s"] = _timed_steps(call)[0]
+        print(f"process group, one rank (NCCL), {label} at full width: loss {o['loss']:.6f} (plain "
+              f"{plain[label][0]:.6f}), gradients "
+              f"{'bitwise equal' if o['bitwise'] else 'within %.2e of their norms' % o['grad_gap']}; steps "
+              f"{[round(x, 4) for x in o['steps_s']]} s, mean {o['step_s']:.4f} s = {TRAIN_BS / o['step_s']:.3f} "
+              f"samples/s (plain {o['plain_step_s']:.4f} s before the group, {o['plain_after_s']:.4f} s after); peak "
+              f"{o['peak_gib']:.2f} GiB; launches {o['launches']}; gradient all-reduce ({o['elements']} float32 in one "
+              f"buffer) {o['allreduce_ms']:.4f} ms = {100 * o['allreduce_ms'] / (1e3 * o['step_s']):.3f}% of the "
+              f"step ({card})", flush=True)
+    del g_state, r_state, gdb, rdb, noise, cells
+    torch.cuda.empty_cache()
+    return out
+
+
+def _spawn_ranks(args_for_rank, shared: str, env_for_rank=None, cwd_for_rank=None) -> list[str]:
+    """Two processes of this script, started together; each must exit 0
+    within DIST_TIMEOUT_S (a rank that fails fails the phase). Every process
+    is stopped before this returns. -> their outputs."""
+    procs = []
+    try:
+        for r in range(2):
+            env = dict(os.environ, **(env_for_rank(r) if env_for_rank else {}))
+            cwd = cwd_for_rank(r) if cwd_for_rank else shared
+            os.makedirs(cwd, exist_ok=True)
+            procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), *args_for_rank(r)], cwd=cwd,
+                                          env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        outs, deadline = [], time.perf_counter() + DIST_TIMEOUT_S
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=max(1.0, deadline - time.perf_counter()))[0])
+            except subprocess.TimeoutExpired:
+                outs.append("")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        require(p.returncode == 0, f"rank {r} exited {p.returncode}:\n{o[-4000:]}")
+    return outs
+
+
+def _two_rank_worker(shared: str, rank: int) -> None:
+    """(b)'s rank: the G and R cells on cuda:0 in a gloo group of 2, rows
+    [32 r, 32 r + 32) of the same 64; one step each with its loss and
+    gradients, a second step, the parameters' digest and the launch counts
+    written to shared/rank{r}.pt."""
+    import torch
+
+    from oakink2_tamf_tpu_torch.ops import chamfer_loss as CL
+    from oakink2_tamf_tpu_torch.ops import chamfer_nn as NN
+    from oakink2_tamf_tpu_torch.ops import chamfer_signed as CS
+    from oakink2_tamf_tpu_torch.parallel import mesh
+
+    dev = torch.device("cuda", 0)
+    mesh.init_distributed(backend="gloo", init_method="file://" + os.path.join(shared, "rendezvous"),
+                          world_size=2, rank=rank, device=dev)
+    (g_state, g_step, gdb, noise), (r_state, r_step, rdb) = _dist_cells(dev)
+    rows = slice(rank * TRAIN_BS // 2, (rank + 1) * TRAIN_BS // 2)
+    gdb = {k: v[rows] for k, v in gdb.items()}
+    rdb = {k: v[rows] for k, v in rdb.items()}
+    res = {}
+    for label, state, call, kernels in (
+            ("G", g_state, lambda s: g_step(s, gdb, noise=noise[rows]), {"nn_signed": CS.KERNEL, "dist_loss": CL.KERNEL}),
+            ("R", r_state, lambda s: r_step(s, rdb), {"h2o_nn": NN.KERNEL, "h2o_nn_dvec": NN.DVEC_KERNEL})):
+        _zero_counts(kernels)
+        t0 = time.perf_counter()
+        m = call(state)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        res[label] = dict(loss=float(m["loss"]), grads=_grads(state))
+        t0 = time.perf_counter()
+        call(state)
+        torch.cuda.synchronize()
+        res[label]["second_step_s"] = time.perf_counter() - t0
+        res[label]["launches"] = {n: k.launches for n, k in kernels.items()}
+        res[label]["digest"] = _params_digest(state)
+        params = state.optimizer.params
+        res[label]["allreduce_ms"] = cuda_time_ms(lambda: mesh.all_reduce_grads_(params), reps=3)
+        print(f"rank {rank}: {label} on {TRAIN_BS // 2} of {TRAIN_BS} rows: loss {res[label]['loss']:.6f}, steps "
+              f"{first:.3f} / {res[label]['second_step_s']:.3f} s, launches in 2 steps {res[label]['launches']}, "
+              f"gloo all-reduce {res[label]['allreduce_ms']:.3f} ms", flush=True)
+    torch.save(res, os.path.join(shared, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def group_two_ranks(one: dict) -> None:
+    """(b) Two processes sharing cuda:0 in a gloo group (NCCL refuses two
+    ranks on one card), each with 32 of the same 64 rows, on the full-width
+    G step and the all-pairs R step: each rank's loss within rtol 1e-5 of
+    (a)'s one-rank step and each gradient within 1e-5 of its norm; the
+    ranks' parameters bitwise equal after 2 steps; #6/#8 and #1/#4 once per
+    step on each rank."""
+    import tempfile
+
+    import torch
+
+    card = card_line()
+    with tempfile.TemporaryDirectory(prefix="tamf_ranks_") as shared:
+        t0 = time.perf_counter()
+        outs = _spawn_ranks(lambda r: ["--two-rank-worker", shared, str(r)], shared)
+        wall = time.perf_counter() - t0
+        res = [torch.load(os.path.join(shared, f"rank{r}.pt"), weights_only=False) for r in range(2)]
+    for o in outs:
+        print("\n".join(ln for ln in o.splitlines() if ln.startswith("rank ")), flush=True)
+    for label, kernels in (("G", ("nn_signed", "dist_loss")), ("R", ("h2o_nn", "h2o_nn_dvec"))):
+        want = one[label]
+        gaps = []
+        for r in range(2):
+            got = res[r][label]
+            require(abs(got["loss"] - want["loss"]) <= DIST_REL * abs(want["loss"]),
+                    f"(b) {label} rank {r}: loss {got['loss']} vs one rank's {want['loss']}")
+            gap, name = _grad_gap_rel(got["grads"], want["grads"])
+            require(gap <= DIST_REL, f"(b) {label} rank {r}: gradient {name} {gap:.3e} of its norm from one rank's")
+            require(all(got["launches"][k] == 2 for k in kernels), f"(b) {label} rank {r}: {got['launches']}")
+            gaps.append((gap, name))
+        require(res[0][label]["digest"] == res[1][label]["digest"],
+                f"(b) {label}: the ranks' parameters differ after 2 steps")
+        print(f"two ranks sharing the card (gloo), {label}: losses {res[0][label]['loss']:.6f} / "
+              f"{res[1][label]['loss']:.6f} (one rank {want['loss']:.6f}); gradients within "
+              f"{max(gaps)[0]:.2e} of their norms (worst {max(gaps)[1]}); parameters bitwise equal after 2 steps; second steps "
+              f"{res[0][label]['second_step_s']:.3f} / {res[1][label]['second_step_s']:.3f} s on the shared card "
+              f"(one rank alone {want['step_s']:.4f} s); gloo all-reduce {res[0][label]['allreduce_ms']:.3f} ms; "
+              f"both ranks {wall:.1f} s ({card})", flush=True)
+
+
+def _train_r_worker(shared: str) -> None:
+    """(c)'s rank, started with torchrun's environment: train_r.main on the
+    smoke config on cuda:0 over gloo, its kernels built cold into a build
+    dir both ranks share; the parameters' digest to shared/train_r{rank}.pt."""
+    import torch
+
+    from oakink2_tamf_tpu_torch.launch import train_r
+    from oakink2_tamf_tpu_torch.ops import _build
+    from oakink2_tamf_tpu_torch.ops import chamfer_nn as NN
+
+    _build.BUILD_DIR = os.path.join(shared, "build")
+    smoke = os.path.join(os.path.dirname(os.path.abspath(__file__)), "config", "synthetic_smoke.yml")
+    state = train_r.main(["--cfg", smoke, "--runtime.device", "cuda:0", "--runtime.dist_backend", "gloo",
+                          "--exp_id", "dist_r", "--train.num_epoch", "1", "--train.val_freq", "1",
+                          "--train.eval_max_batches", "1", "--commit",
+                          "--train.data.target_h2o_cache_dir", os.path.join(shared, "h2o_cache")])
+    rank = torch.distributed.get_rank()
+    torch.save({"step": state.step, "digest": _params_digest(state),
+                "launches": {"h2o_nn": NN.KERNEL.launches, "h2o_nn_dvec": NN.DVEC_KERNEL.launches}},
+               os.path.join(shared, f"train_r{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def train_r_two_ranks() -> None:
+    """(c) launch/train_r.main on two ranks through torchrun's environment
+    (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT), both on
+    cuda:0 over gloo: the smoke config, 1 epoch, val_freq 1, a shared
+    target_h2o_cache_dir, --commit, the kernels built cold by both ranks
+    into one dir. The ranks' parameters bitwise equal; the striped cache
+    complete (16 files and meta.json); only rank 0 writes save/ and the
+    eval line."""
+    import tempfile
+
+    import torch
+
+    card = card_line()
+    port = _free_port()
+    with tempfile.TemporaryDirectory(prefix="tamf_train_r_") as shared:
+        t0 = time.perf_counter()
+        outs = _spawn_ranks(
+            lambda r: ["--train-r-worker", shared], shared,
+            env_for_rank=lambda r: dict(RANK=str(r), WORLD_SIZE="2", LOCAL_RANK=str(r), MASTER_ADDR="localhost",
+                                        MASTER_PORT=str(port)),
+            cwd_for_rank=lambda r: os.path.join(shared, f"rank{r}"))
+        wall = time.perf_counter() - t0
+        res = [torch.load(os.path.join(shared, f"train_r{r}.pt"), weights_only=False) for r in range(2)]
+        cache = os.listdir(os.path.join(shared, "h2o_cache"))
+        build = os.path.join(shared, "build")
+        built = sorted(f for f in os.listdir(build) if f.endswith(".so")) if os.path.isdir(build) else []
+        runs = [os.path.join(shared, f"rank{r}", "common", "train_r", "dist_r") for r in range(2)]
+        saved = [sorted(os.listdir(os.path.join(d, "save"))) if os.path.isdir(os.path.join(d, "save")) else []
+                 for d in runs]
+    require(res[0]["step"] == res[1]["step"] == 1, f"(c) steps {res[0]['step']} / {res[1]['step']}")
+    require(res[0]["digest"] == res[1]["digest"], "(c) the ranks' parameters differ")
+    npy = [f for f in cache if f.endswith(".npy")]
+    require(len(npy) == 16 and "meta.json" in cache, f"(c) the shared cache holds {sorted(cache)}")
+    require(saved == [["model_0000.pt"], []], f"(c) save/ per rank: {saved}")
+    require("val epoch 0000 refine eval" in outs[0] and "refine eval" not in outs[1],
+            "(c) the eval line is not rank 0's alone")
+    require(all(r["launches"]["h2o_nn"] > 0 and r["launches"]["h2o_nn_dvec"] > 0 for r in res),
+            f"(c) launches {[r['launches'] for r in res]}")
+    require(sorted(f.split("-")[0] for f in built) == ["h2o_nn", "h2o_nn_dvec"], f"(c) built cold: {built}")
+    print(f"train_r.main on two ranks (gloo on cuda:0, torchrun environment): {wall:.1f} s; parameters bitwise "
+          f"equal after {res[0]['step']} step; the shared cache {len(npy)} files + meta.json; save/ "
+          f"{saved[0]} on rank 0, none on rank 1; kernels built cold by both ranks into one dir: {built}; "
+          f"launches per rank {[r['launches'] for r in res]} ({card})", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -4199,6 +4531,15 @@ def main() -> int:
     phase("scoring chain: real-format data, train_encoder, compute_score")
     score_nn, score_stats = scoring_path()
     print("scoring: " + json.dumps(score_stats), flush=True)
+    phase("process group, one rank (NCCL)")
+    one_rank = group_one_rank()
+    print("process group: " + json.dumps({"card": card_line(), **{
+        k: {n: v for n, v in o.items() if n != "grads"} for k, o in one_rank.items()}}), flush=True)
+    phase("two ranks sharing the card (gloo)")
+    group_two_ranks(one_rank)
+    del one_rank
+    phase("train_r.main on two ranks")
+    train_r_two_ranks()
     # each kernel's count from the paths that run it: serving for #1/#2 (#1
     # also in sample_r and in compute_score's CR on its output and on the
     # real-format data, #2 also in the full-width G->R chain), the fused G
@@ -4242,4 +4583,15 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] in ("--two-rank-worker", "--train-r-worker"):
+        # a rank of the process-group phases, started by _spawn_ranks
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        from oakink2_tamf_tpu_torch._device import set_fp32_precision
+
+        set_fp32_precision()
+        if sys.argv[1] == "--two-rank-worker":
+            _two_rank_worker(sys.argv[2], int(sys.argv[3]))
+        else:
+            _train_r_worker(sys.argv[2])
+        sys.exit(0)
     sys.exit(main())

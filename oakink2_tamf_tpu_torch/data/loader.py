@@ -5,8 +5,9 @@ Replaces the reference's torch DataLoader + DistributedSampler stack
 (launch/train.py:394-432): index sharding by striding, per-epoch reshuffle
 with a deterministic seed (DistributedSampler.set_epoch parity: the same
 numpy permutation as the JAX package), drop_last, and a background thread
-that overlaps collate with device work. One shard unless told otherwise
-(the port trains on one device for now).
+that overlaps collate with device work. The shards default to the process
+group (parallel/mesh.py): rank w of W takes every W-th index from w, the
+permutation wrap-padded so that every rank has as many.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ import threading
 from typing import Any, Callable, Iterator, Optional
 
 import numpy as np
+
+from ..parallel import mesh
 
 
 class DataLoader:
@@ -39,8 +42,8 @@ class DataLoader:
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
-        self.num_shards = num_shards if num_shards is not None else 1
-        self.shard_index = shard_index if shard_index is not None else 0
+        self.num_shards = num_shards if num_shards is not None else mesh.world_size()
+        self.shard_index = shard_index if shard_index is not None else mesh.rank()
         self.prefetch = prefetch
         self.num_workers = max(1, num_workers)
         self.epoch = 0

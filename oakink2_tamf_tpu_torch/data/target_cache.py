@@ -176,10 +176,15 @@ class TargetH2OCache:
             h2o[bad] = exact
         return list(h2o.cpu().numpy().astype(np.float32))
 
-    def precompute(self, *, force: bool = False) -> int:
+    def precompute(self, *, force: bool = False, shard_index: int = 0, num_shards: int = 1) -> int:
         """One batched pass over the base dataset, skipping cached indices;
-        returns the number of entries computed."""
-        todo = [i for i in range(len(self.base)) if force or not self._has(i)]
+        returns the number of entries computed. Several processes sharing a
+        cache_dir each pass (rank, world size) and compute the indices i
+        with i % num_shards == shard_index (JAX target_cache.py:239-262);
+        an index of another stripe that is not there yet is computed at
+        its first read."""
+        todo = [i for i in range(len(self.base))
+                if i % num_shards == shard_index and (force or not self._has(i))]
         t0 = time.time()
         for lo in range(0, len(todo), self.batch_size):
             idx = todo[lo : lo + self.batch_size]

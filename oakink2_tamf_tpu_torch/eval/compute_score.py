@@ -34,7 +34,6 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from .._device import resolve_device
 from ..core import mano as M
 from ..core import transforms as T
 from ..data.collate import SegmentCollate
@@ -224,7 +223,7 @@ def main(argv=None, toolkit=None) -> dict:
         [param.reg_base_param, param.reg_mano_param, param.reg_model_param, reg_score_param],
         argv,
     )
-    device = resolve_device(reg.select("runtime").get("device") or "cuda")
+    device = common.run_device(reg)
     _logger.info("device: %s", device)
     dataset = common.build_dataset(reg, reg.select("score").get("split", "test"), toolkit=toolkit)
     sample_dir = reg.select("score").get("sample_dir")

@@ -1,13 +1,23 @@
 """Shared launcher plumbing (port of oakink2_tamf_tpu/launch/common.py:39-301):
-config boot, dataset and loader construction, CLIP text features, moving a
-batch to the device, the samplers' sharding and segment infos, and the
-activation a checkpoint must run under.
+config boot with the process group, the run's device, dataset and loader
+construction, CLIP text features, moving a batch to the device, the
+samplers' sharding and segment infos, and the activation a checkpoint must
+run under.
+
+Several processes (one per card, or on the CPU) run under torchrun, which
+sets RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT:
+
+    torchrun --nproc_per_node 2 -m oakink2_tamf_tpu_torch.launch.train_r --cfg ... [--runtime.device cpu]
+
+`boot` joins the group (maybe_init_distributed) and raises where the JAX
+package would go on as one process.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import sys
 from typing import Any
 
@@ -19,22 +29,30 @@ from ..data.loader import DataLoader
 from ..data.segment import InteractionSegmentData
 from ..data.synthetic import SyntheticSegments
 from ..models.clip_text import FrozenClipText
+from ..parallel import mesh
 from ..runtime import logging as RL
 from ..runtime.ckpt import RunDir, read_model_state_dict
+from ..runtime.logging import MetricWriter
 from ..runtime.config import ConfigRegistry, sync_global_timestamp
 
 _logger = logging.getLogger(__name__)
 
 
 def boot(prog: str, register_fns, argv=None) -> tuple[ConfigRegistry, RunDir]:
-    """Parse the config, set up the run dir and logging: (registry, run_dir)."""
-    sync_global_timestamp()
+    """Parse the config, join the process group under torchrun, set up the
+    run dir and logging: (registry, run_dir). Every rank parses; rank 0's
+    start time stamps `?(ts)` for all of them; only rank 0 writes the run's
+    opt.yml and log file."""
     reg = ConfigRegistry(prog)
     for fn in register_fns:
         fn(reg)
     parser = argparse.ArgumentParser(prog=prog)
     reg.hook(parser)
     reg.parse(parser, argv)
+    maybe_init_distributed(reg)
+    if mesh.world_size() > 1:
+        sync_global_timestamp()
+        reg.parse(parser, argv)  # ?(ts) again, with rank 0's stamp
 
     RL.log_init()
     RL.enable_console()
@@ -43,11 +61,83 @@ def boot(prog: str, register_fns, argv=None) -> tuple[ConfigRegistry, RunDir]:
 
     run_dir = RunDir(prog, exp_id=reg.select("exp_id"), commit=reg.values.get("commit", False))
     run_dir.setup()
-    if run_dir.commit:
-        RL.enable_file(run_dir.log_file)
-    run_dir.dump_opt(config={k: _plain(v) for k, v in reg.values.items()})
+    if mesh.is_coordinator():
+        if run_dir.commit:
+            RL.enable_file(run_dir.log_file)
+        run_dir.dump_opt(config={k: _plain(v) for k, v in reg.values.items()})
     _logger.info("prog=%s exp_id=%s commit=%s", prog, run_dir.exp_id, run_dir.commit)
+    if mesh.is_live():
+        _logger.info("process group: rank %d of %d (%s)", mesh.rank(), mesh.world_size(),
+                     torch.distributed.get_backend())
     return reg, run_dir
+
+
+def run_device(reg: ConfigRegistry):
+    """The run's device: runtime.device ("cuda" = the card of LOCAL_RANK),
+    through mesh.local_device. Raises without a GPU unless told "cpu", when
+    LOCAL_RANK has no card, and when runtime.device_count (the JAX
+    package's mesh size; 0 = any) differs from the world size."""
+    runtime = reg.select("runtime")
+    dev = mesh.local_device(runtime.get("device") or "cuda")
+    count = int(runtime.get("device_count") or 0)
+    if count and count != mesh.world_size():
+        raise ValueError(
+            f"runtime.device_count {count} but {mesh.world_size()} process(es): the port runs one "
+            "process per device (torchrun --nproc_per_node)"
+        )
+    return dev
+
+
+TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+
+
+def maybe_init_distributed(reg: ConfigRegistry) -> None:
+    """Join the torch.distributed group that torchrun describes in the
+    environment (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT;
+    JAX launch/common.py:71-85), then check the run's device against it
+    (run_device). Nothing to join without RANK and WORLD_SIZE, or when the
+    caller already joined a group. The backend is runtime.dist_backend,
+    else NCCL on CUDA and gloo on the CPU (gloo also lets two ranks share
+    one card). An incomplete or inconsistent environment and a failed
+    rendezvous raise: there is no fallback to one process."""
+    env = os.environ
+    if not mesh.is_live() and ("RANK" in env or "WORLD_SIZE" in env):
+        missing = [k for k in TORCHRUN_ENV if k not in env]
+        if missing:
+            raise RuntimeError(f"incomplete torchrun environment: {', '.join(missing)} unset")
+        world, rank = int(env["WORLD_SIZE"]), int(env["RANK"])
+        if not 0 <= rank < world:
+            raise RuntimeError(f"RANK {rank} out of range for WORLD_SIZE {world}")
+        runtime = reg.select("runtime")
+        dev = mesh.local_device(runtime.get("device") or "cuda")
+        backend = str(runtime.get("dist_backend") or ("nccl" if dev.type == "cuda" else "gloo"))
+        mesh.init_distributed(backend=backend, init_method=f"tcp://{env['MASTER_ADDR']}:{int(env['MASTER_PORT'])}",
+                              world_size=world, rank=rank, device=dev)
+    run_device(reg)
+
+
+def precompute_cache(cache) -> None:
+    """Fill a per-sample cache (data/target_cache.py) before the first
+    step. With a cache_dir the ranks split the indices into stripes and
+    wait for each other; an in-memory cache is private to its process, so
+    every rank computes all of it (JAX launch/train_r.py:130-147)."""
+    W = mesh.world_size()
+    if cache.cache_dir:
+        cache.precompute(shard_index=mesh.rank(), num_shards=W)
+        mesh.barrier()
+        return
+    if W > 1:
+        _logger.warning(
+            "%s is in-memory on %d processes: each computes all %d segments; a shared "
+            "cache dir would split the work", cache._log_label, W, len(cache),
+        )
+    cache.precompute()
+
+
+def metric_writer(run_dir: RunDir) -> MetricWriter:
+    """The run's summary writer: on rank 0 of a committed run, else a no-op."""
+    on = bool(run_dir.commit) and mesh.is_coordinator()
+    return MetricWriter(run_dir.sub("summary") if on else None, enabled=on)
 
 
 def _plain(v: Any):

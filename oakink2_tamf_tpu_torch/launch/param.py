@@ -1,6 +1,7 @@
 """Config-entry registration shared by the launch CLIs (copy of
-oakink2_tamf_tpu/launch/param.py, plus `runtime.device`, the `fused_cull`
-choice of `train.dist_impl` and train_g's `runtime.profile_dir`; mirrors
+oakink2_tamf_tpu/launch/param.py, plus `runtime.device`,
+`runtime.dist_backend`, the `fused_cull` choice of `train.dist_impl` and
+train_g's `runtime.profile_dir`; mirrors
 reference launch/param/{base,mano,model,loss,loss_refine}.py — the schema,
 not the code). The same YAMLs drive both packages; entries about the TPU (chunk,
 h2o_backend) are accepted and documented where the port reads them."""
@@ -14,9 +15,13 @@ def reg_base_param(reg: ConfigRegistry) -> None:
     reg.register("exp_id", category=str, default="?(prog)__?(ts)")
     reg.register("seed", prefix="runtime", category=int, default=0)
     reg.register("num_worker", prefix="runtime", category=int, default=2)
-    reg.register("device_count", prefix="runtime", category=int, default=0, desc="0 = all devices")
+    reg.register("device_count", prefix="runtime", category=int, default=0,
+                 desc="0 = any; else must equal the process group's world size")
     reg.register("device", prefix="runtime", category=str, default="cuda",
-                 desc="torch device of the run: cuda (default; raises without a GPU) or cpu")
+                 desc="torch device of the run: cuda (default: the card of LOCAL_RANK; raises without a "
+                      "GPU), cuda:N, or cpu")
+    reg.register("dist_backend", prefix="runtime", category=str, default="",
+                 desc="torch.distributed backend under torchrun: nccl on CUDA, gloo on the CPU by default")
 
     reg.register("data_prefix", prefix="data", category=str, default="")
     reg.register("obj_embedding_prefix", prefix="data", category=str, default="")

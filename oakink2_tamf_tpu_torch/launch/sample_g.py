@@ -1,6 +1,8 @@
 """Sample MF-MDM G over a split and save one .npy pose_repr per segment for
 R's training (port of oakink2_tamf_tpu/launch/sample_g.py; the reference's
-launch/sample.py workflow) on one device.
+launch/sample.py workflow) on one device; under torchrun, one process per
+device (launch/common.run_device), each on its own shard and with no
+collective after boot (the JAX package's local mesh per process).
 
     python -m oakink2_tamf_tpu_torch.launch.sample_g --cfg config/arch_mdm_l.yml \
         --data.synthetic true --sample.model_filepath G.pt [--sample.sampler ddim] \
@@ -28,7 +30,6 @@ import os
 import numpy as np
 import torch
 
-from .._device import resolve_device
 from ..core import diffusion as D
 from ..data.collate import SegmentCollate
 from ..parallel import train as PT
@@ -62,7 +63,7 @@ def main(argv=None) -> str:
     sample_cfg = reg.select("sample")
     runtime = reg.select("runtime")
     split = sample_cfg.get("split", "test")
-    device = resolve_device(runtime.get("device") or "cuda")
+    device = common.run_device(reg)
     _logger.info("device: %s", device)
 
     dataset = common.build_dataset(reg, split)

@@ -1,7 +1,9 @@
 """Refined sampling: run R over G's saved samples (or perturbed GT) and save
 the per-segment `save_dict.pkl` the scoring reads (port of
 oakink2_tamf_tpu/launch/sample_r.py; the reference's
-launch/sample_refine.py workflow) on one device.
+launch/sample_refine.py workflow) on one device; under torchrun, one
+process per device (launch/common.run_device), each on its own shard and
+with no collective after boot.
 
     python -m oakink2_tamf_tpu_torch.launch.sample_r --cfg config/arch_refine.yml \
         --data.synthetic true --sample.model_filepath R.pt \
@@ -29,7 +31,6 @@ import pickle
 
 import torch
 
-from .._device import resolve_device
 from ..core import mano as M
 from ..data.adaptors import GaussianPerturbSampleAdaptor, GeneratedPoseReprSampleAdaptor
 from ..data.collate import SegmentCollate
@@ -57,7 +58,7 @@ def main(argv=None) -> str:
     )
     sample_cfg = reg.select("sample")
     split = sample_cfg.get("split", "test")
-    device = resolve_device(reg.select("runtime").get("device") or "cuda")
+    device = common.run_device(reg)
     _logger.info("device: %s", device)
 
     base = common.build_dataset(reg, split)

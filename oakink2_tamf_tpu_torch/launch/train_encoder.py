@@ -1,5 +1,8 @@
 """Train the FID SegmentEncoder (port of oakink2_tamf_tpu/launch/train_encoder.py;
-the reference's launch/train_encoder.py workflow) on one device.
+the reference's launch/train_encoder.py workflow) on one device, or one
+process per device under torchrun (each rank on its stripe, every step the
+global batch's; rank 0 writes checkpoints and summaries and logs the eval
+pass, which every rank runs over its stripe).
 
     python -m oakink2_tamf_tpu_torch.launch.train_encoder --cfg config/arch_encoder.yml \
         --train.cache_dict_filepath <cache_dict.pkl> --data.obj_embedding_prefix <dir> \
@@ -22,10 +25,8 @@ from __future__ import annotations
 import logging
 import time
 
-import numpy as np
 import torch
 
-from .._device import resolve_device
 from ..data.adaptors import (
     ActionRecognitionAdapter,
     ConcatDataset,
@@ -35,10 +36,11 @@ from ..data.adaptors import (
 )
 from ..models import losses as LL
 from ..models.encoder import COND_KEYS, EncoderConfig, SegmentEncoder
+from ..parallel import mesh
 from ..parallel import train as PT
 from ..runtime.ckpt import load_checkpoint, save_train_state
-from ..runtime.logging import MetricWriter
 from ..runtime.profiler import StepTimer
+from ..utils.seeding import setup_seed
 from . import common, param
 
 _logger = logging.getLogger(__name__)
@@ -71,7 +73,8 @@ def build_encoder(reg, activation: str | None = None) -> SegmentEncoder:
 @torch.no_grad()
 def evaluate_encoder(model, loader, device, max_batches: int = 0) -> dict[str, float]:
     """CE and accuracy of the deterministic forward (dropout off) on the GT
-    pose_repr, meaned over the batches; max_batches=0 runs the whole split."""
+    pose_repr, meaned over the batches of the global batch (every rank runs
+    its stripe); max_batches=0 runs the whole split."""
     was_training = model.training
     model.eval()
     acc: dict[str, list] = {}
@@ -84,7 +87,7 @@ def evaluate_encoder(model, loader, device, max_batches: int = 0) -> dict[str, f
         for k, v in terms.items():
             acc.setdefault(k, []).append(float(v))
     model.train(was_training)
-    return {k: float(np.mean(v)) for k, v in acc.items()}
+    return mesh.reduce_batch_means(acc)
 
 
 def main(argv=None, toolkit=None) -> PT.TrainState:
@@ -101,8 +104,9 @@ def main(argv=None, toolkit=None) -> PT.TrainState:
     )
     train_cfg = reg.select("train")
     runtime = reg.select("runtime")
-    device = resolve_device(runtime.get("device") or "cuda")
+    device = common.run_device(reg)
     seed = int(runtime.get("seed", 0))
+    W, coordinator = mesh.world_size(), mesh.is_coordinator()
     _logger.info("device: %s", device)
 
     base = common.build_dataset(reg, "train", toolkit=toolkit)
@@ -116,8 +120,9 @@ def main(argv=None, toolkit=None) -> PT.TrainState:
     parts.append(GaussianPerturbSampleAdaptor(base, (0.02, 0.1), seed=0))
     loader = common.build_loader(reg, ActionRecognitionAdapter(ConcatDataset(parts)), "train")
 
-    torch.manual_seed(seed)  # weights and dropout
+    torch.manual_seed(seed)  # weights: the same on every rank
     model = build_encoder(reg).to(device)
+    setup_seed(seed)  # dropout: seed + rank
     steps_per_epoch = len(loader)
     milestones = [int(m) * steps_per_epoch for m in train_cfg.get("scheduler_milestone", [])]
     optimizer = PT.make_optimizer(
@@ -134,7 +139,7 @@ def main(argv=None, toolkit=None) -> PT.TrainState:
         _logger.info("reloaded ckpt from %s at step %d", train_cfg["reload_ckpt_model_filepath"], state.step)
 
     step_fn = PT.make_encoder_train_step()
-    writer = MetricWriter(run_dir.sub("summary") if run_dir.commit else None, enabled=run_dir.commit)
+    writer = common.metric_writer(run_dir)
     val_freq = int(train_cfg.get("val_freq", 0) or 0)
     eval_loaders = {}
     if val_freq:
@@ -162,16 +167,16 @@ def main(argv=None, toolkit=None) -> PT.TrainState:
             "train epoch %04d | ce %.4f acc %.3f | %.1fs | %.1f samples/s", epoch_id,
             float(metrics["ce"]) if metrics else float("nan"),
             float(metrics["acc"]) if metrics else float("nan"),
-            time.time() - t_epoch, timer.throughput(batch_size),
+            time.time() - t_epoch, timer.throughput(W * batch_size),
         )
-        if run_dir.commit and (epoch_id % record_freq == 0 or epoch_id == num_epoch - 1):
+        if coordinator and run_dir.commit and (epoch_id % record_freq == 0 or epoch_id == num_epoch - 1):
             path = save_train_state(run_dir.sub("save"), epoch_id, state)
             _logger.info("saved %s", path)
         if val_freq and (epoch_id == 0 or (epoch_id + 1) % val_freq == 0 or epoch_id == num_epoch - 1):
             for split, eval_loader in eval_loaders.items():
                 means = evaluate_encoder(model, eval_loader, device,
                                          max_batches=int(train_cfg.get("eval_max_batches", 0) or 0))
-                if means:
+                if means and coordinator:
                     _logger.info("%s epoch %04d | ce %.4f acc %.3f", split, epoch_id,
                                  means.get("ce", float("nan")), means.get("acc", float("nan")))
                 for k, v in means.items():

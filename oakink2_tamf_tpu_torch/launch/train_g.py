@@ -1,11 +1,16 @@
 """Train MF-MDM G (port of oakink2_tamf_tpu/launch/train_g.py; the reference's
-launch/train.py workflow) on one device.
+launch/train.py workflow) on one device, or one process per device.
 
     python -m oakink2_tamf_tpu_torch.launch.train_g --cfg config/arch_mdm_l.yml \
         --cfg config/loss_param.yml --data.synthetic true [--runtime.device cpu] [--commit]
+    torchrun --nproc_per_node 2 -m oakink2_tamf_tpu_torch.launch.train_g ...
 
 The YAMLs are the JAX package's. The device is `runtime.device` ("cuda" by
-default; without a GPU the run raises unless told "cpu").
+default; without a GPU the run raises unless told "cpu"). Under torchrun
+each rank trains on its stripe of the data (train.batch_size rows per
+rank) and every step is the global batch's (parallel/train.py); rank 0
+alone writes checkpoints, summaries and the trace; the eval pass runs on
+every rank over its stripe and rank 0 logs the global means.
 `train.data.cache_gt_geom` precomputes the GT side of the extra loss once
 per segment (data/target_cache.GTGeomCache). `train.dist_impl fused_cull`
 takes the region-culled loss kernel, its mask tiled at `train.chunk`
@@ -21,10 +26,8 @@ import logging
 import os
 import time
 
-import numpy as np
 import torch
 
-from .._device import resolve_device
 from ..core import diffusion as D
 from ..core import mano as M
 from ..data.collate import SegmentCollate
@@ -32,10 +35,11 @@ from ..data.target_cache import GTGeomCache
 from ..models import losses as LL
 from ..models.mdm_g import InteractionSegmentMDM, MDMConfig
 from ..models.refine_r import stack_mano_models
+from ..parallel import mesh
 from ..parallel import train as PT
 from ..runtime.ckpt import load_checkpoint, save_train_state
-from ..runtime.logging import MetricWriter
 from ..runtime.profiler import DeviceTrace, StepTimer
+from ..utils.seeding import setup_seed
 from . import common, param
 
 _logger = logging.getLogger(__name__)
@@ -74,7 +78,10 @@ def evaluate_g(sample_fn, model, mano_stack, assets, extra_cfg, loader, clip, de
     """val/test pass (reference launch/train.py:577-656): sample G on held-out
     segments with `sample_fn` (parallel/train.make_g_sampler), then report
     the masked MSE against the GT and the geometric extra loss terms of the
-    samples. max_batches=0 runs the whole split."""
+    samples (batch sums, as in training), meaned over the batches of the
+    global batch (every rank runs its stripe: mesh.reduce_batch_means; the
+    sampling noise comes from `generator`, the same on every rank).
+    max_batches=0 runs the whole split."""
     acc: dict[str, list] = {}
     for n, batch in enumerate(loader):
         if max_batches and n >= max_batches:
@@ -87,7 +94,7 @@ def evaluate_g(sample_fn, model, mano_stack, assets, extra_cfg, loader, clip, de
         _, terms = LL.interaction_segment_extra_loss(mano_stack, assets, extra_cfg, sample, db)
         for k, v in terms.items():
             acc.setdefault(k, []).append(float(v))
-    return {k: float(np.mean(v)) for k, v in acc.items()}
+    return mesh.reduce_batch_means(acc, sums=[k for k in acc if k != "sample_mse"])
 
 
 def _scalars(metrics: dict[str, torch.Tensor]) -> dict[str, float]:
@@ -111,8 +118,9 @@ def main(argv=None) -> PT.TrainState:
     )
     train_cfg = reg.select("train")
     runtime = reg.select("runtime")
-    device = resolve_device(runtime.get("device") or "cuda")
+    device = common.run_device(reg)
     seed = int(runtime.get("seed", 0))
+    W, coordinator = mesh.world_size(), mesh.is_coordinator()
     _logger.info("device: %s", device)
 
     try:
@@ -134,12 +142,13 @@ def main(argv=None) -> PT.TrainState:
                            n_obj_points=int(data_cfg.get("n_obj_points", 2048))),
             cache_dir=tdc.get("gt_geom_cache_dir") or None,
         )
-        train_ds.precompute()
+        common.precompute_cache(train_ds)
     train_loader = common.build_loader(reg, train_ds, "train")
     clip = common.build_clip(reg, device)
 
-    torch.manual_seed(seed)  # weights and dropout
+    torch.manual_seed(seed)  # weights: the same on every rank
     model = build_model(reg).to(device)
+    setup_seed(seed)  # dropout and the cond mask: seed + rank
     dcfg = reg.select("diffusion")
     sched = D.tamf_schedule(
         int(dcfg.get("steps", 1000)), str(dcfg.get("noise_schedule", "cosine")),
@@ -183,8 +192,9 @@ def main(argv=None) -> PT.TrainState:
     sampler_name = str(train_cfg.get("schedule_sampler", "uniform"))
     resampler = (create_named_schedule_sampler(sampler_name, sched.num_timesteps)
                  if sampler_name != "uniform" else None)
-    writer = MetricWriter(run_dir.sub("summary") if run_dir.commit else None, enabled=run_dir.commit)
+    writer = common.metric_writer(run_dir)
 
+    # the same on every rank: each draws over the global batch and keeps its rows
     generator = torch.Generator(device=device).manual_seed(seed)  # t and q_sample noise
     host_generator = torch.Generator().manual_seed(seed + 1)  # importance resampler
     val_freq = int(train_cfg.get("val_freq", 0) or 0)
@@ -194,7 +204,7 @@ def main(argv=None) -> PT.TrainState:
     num_epoch = int(train_cfg.get("num_epoch", 400))
     record_freq = int(train_cfg.get("record_freq", 20))
     batch_size = int(train_cfg.get("batch_size", 64))
-    profile_dir = runtime.get("profile_dir") or os.environ.get("TAMF_PROFILE_DIR")
+    profile_dir = (runtime.get("profile_dir") or os.environ.get("TAMF_PROFILE_DIR")) if coordinator else None
     profile = None
     timer = StepTimer()
     global_step = 0
@@ -207,8 +217,8 @@ def main(argv=None) -> PT.TrainState:
             for batch in train_loader:
                 db = common.device_batch(common.attach_text_emb(batch, clip), device)
                 if resampler is not None:
-                    t, w = resampler.sample(db["pose_repr"].shape[0], generator=host_generator, device=device)
-                    db = dict(db, t=t, t_weights=w)
+                    t, w = resampler.sample(W * db["pose_repr"].shape[0], generator=host_generator, device=device)
+                    db = dict(db, t=mesh.shard_rows(t), t_weights=mesh.shard_rows(w))
                 if profile_dir and global_step == PROFILE_SPAN[0]:
                     profile = DeviceTrace(profile_dir, device).start()
                 metrics = step_fn(state, db, generator=generator)
@@ -228,9 +238,9 @@ def main(argv=None) -> PT.TrainState:
             _logger.info(
                 "train epoch %04d conclude | loss: %f | %.1fs | %.1f samples/s",
                 epoch_id, last_metrics.get("loss", float("nan")), time.time() - t_epoch,
-                timer.throughput(batch_size),
+                timer.throughput(W * batch_size),
             )
-            if run_dir.commit and (epoch_id % record_freq == 0 or epoch_id == num_epoch - 1):
+            if coordinator and run_dir.commit and (epoch_id % record_freq == 0 or epoch_id == num_epoch - 1):
                 path = save_train_state(run_dir.sub("save"), epoch_id, state)
                 _logger.info("saved %s", path)
             if val_freq and (epoch_id == 0 or (epoch_id + 1) % val_freq == 0 or epoch_id == num_epoch - 1):
@@ -239,6 +249,8 @@ def main(argv=None) -> PT.TrainState:
                         eval_sampler, model, mano_stack, assets, extra_cfg, loader, clip, device, generator,
                         max_batches=int(train_cfg.get("eval_max_batches", 0) or 0),
                     )
+                    if not coordinator:
+                        continue
                     _logger.info("%s epoch %04d sample eval | %s", split, epoch_id,
                                  " | ".join(f"{k}: {v:f}" for k, v in sorted(terms.items())))
                     for k, v in terms.items():

@@ -1,15 +1,22 @@
 """Train MF-MDM R, the refiner (port of oakink2_tamf_tpu/launch/train_r.py;
-the reference's launch/train_refine.py workflow) on one device.
+the reference's launch/train_refine.py workflow) on one device, or one
+process per device.
 
     python -m oakink2_tamf_tpu_torch.launch.train_r --cfg config/arch_refine.yml \
         --data.synthetic true [--runtime.device cpu] [--commit]
+    torchrun --nproc_per_node 2 -m oakink2_tamf_tpu_torch.launch.train_r ...
 
 Training data: ConcatDataset[GeneratedPoseReprSampleAdaptor(G sample dirs),
 GaussianPerturbSampleAdaptor(sigma in train.data.gaussian_perturb_range)]
 over the base dataset, which the target-h2o cache wraps
 (train.data.cache_target_h2o, on by default) and precomputes on the run's
-device before the first step. Each step differentiates the refined branch
-only: R, MANO of its output and the h2o kernels (parallel/train.py).
+device before the first step (under torchrun the ranks split a shared
+train.data.target_h2o_cache_dir by stripes; an in-memory cache is
+computed whole on every rank). Each step differentiates the refined
+branch only: R, MANO of its output and the h2o kernels
+(parallel/train.py), over the global batch of every rank's stripe. Rank 0
+alone writes checkpoints and summaries; the eval pass runs on every rank
+and rank 0 logs the global means.
 
 The YAMLs are the JAX package's. The device is `runtime.device` ("cuda" by
 default; without a GPU the run raises unless told "cpu"); `train.h2o_backend`
@@ -26,10 +33,8 @@ from __future__ import annotations
 import logging
 import time
 
-import numpy as np
 import torch
 
-from .._device import resolve_device
 from ..core import mano as M
 from ..data.adaptors import ConcatDataset, GaussianPerturbSampleAdaptor, GeneratedPoseReprSampleAdaptor
 from ..data.collate import SegmentCollate
@@ -43,10 +48,11 @@ from ..models.refine_r import (
     refine_forward,
     stack_mano_models,
 )
+from ..parallel import mesh
 from ..parallel import train as PT
 from ..runtime.ckpt import load_checkpoint, save_train_state
-from ..runtime.logging import MetricWriter
 from ..runtime.profiler import StepTimer
+from ..utils.seeding import setup_seed
 from . import common, param
 
 _logger = logging.getLogger(__name__)
@@ -160,7 +166,8 @@ def report_cluster_overflow(ovf_fn, batch, split: str, epoch_id: int, writer, st
 def evaluate_r(net, mano_stack, assets, loss_cfg, loader, device, backend: str = "auto",
                max_batches: int = 0, on_first_batch=None) -> dict[str, float]:
     """val/test pass (reference train_refine.py val passes): the refine loss
-    and its terms of the deterministic forward, meaned over the batches;
+    and its terms of the deterministic forward, meaned over the batches of
+    the global batch (every rank runs its stripe: mesh.reduce_batch_means);
     max_batches=0 runs the whole split. `on_first_batch(device_batch)` runs
     once, on the first batch (the launcher's exactness certificate)."""
     was_training = net.training
@@ -175,7 +182,7 @@ def evaluate_r(net, mano_stack, assets, loss_cfg, loader, device, backend: str =
         for k, v in terms.items():
             acc.setdefault(k, []).append(float(v))
     net.train(was_training)
-    return {k: float(np.mean(v)) for k, v in acc.items()}
+    return mesh.reduce_batch_means(acc)
 
 
 def main(argv=None) -> PT.TrainState:
@@ -193,9 +200,10 @@ def main(argv=None) -> PT.TrainState:
     )
     train_cfg = reg.select("train")
     runtime = reg.select("runtime")
-    device = resolve_device(runtime.get("device") or "cuda")
+    device = common.run_device(reg)
     seed = int(runtime.get("seed", 0))
     backend = str(train_cfg.get("h2o_backend", "auto"))
+    W, coordinator = mesh.world_size(), mesh.is_coordinator()
     _logger.info("device: %s", device)
 
     mano_path = reg.select("mano").get("mano_path") or None
@@ -206,10 +214,11 @@ def main(argv=None) -> PT.TrainState:
     loader = common.build_loader(reg, dataset, "train")
     if t_cache is not None:
         # on the run's device, before any loader thread could miss
-        t_cache.precompute()
+        common.precompute_cache(t_cache)
 
-    torch.manual_seed(seed)  # weights and dropout
+    torch.manual_seed(seed)  # weights: the same on every rank
     net = build_refine_net(reg).to(device)
+    setup_seed(seed)  # dropout: seed + rank
     loss_yaml = train_cfg.get("loss", {})
     assets = LL.load_contact_assets(
         loss_yaml.get("vpe_path") or None, loss_yaml.get("c_weight_path") or None, device=device
@@ -237,7 +246,7 @@ def main(argv=None) -> PT.TrainState:
 
     step_fn = PT.make_r_train_step(mano_stack, assets, loss_cfg, backend=backend)
     ovf_fn = make_overflow_probe(mano_stack, backend=backend)
-    writer = MetricWriter(run_dir.sub("summary") if run_dir.commit else None, enabled=run_dir.commit)
+    writer = common.metric_writer(run_dir)
 
     def wrap_eval(split, base):
         try:
@@ -269,9 +278,9 @@ def main(argv=None) -> PT.TrainState:
         _logger.info(
             "train epoch %04d conclude | loss: %f | %.1fs | %.1f samples/s",
             epoch_id, float(metrics["loss"]) if metrics else float("nan"), time.time() - t_epoch,
-            timer.throughput(batch_size),
+            timer.throughput(W * batch_size),
         )
-        if run_dir.commit and (epoch_id % record_freq == 0 or epoch_id == num_epoch - 1):
+        if coordinator and run_dir.commit and (epoch_id % record_freq == 0 or epoch_id == num_epoch - 1):
             path = save_train_state(run_dir.sub("save"), epoch_id, state)
             _logger.info("saved %s", path)
         if val_freq and (epoch_id == 0 or (epoch_id + 1) % val_freq == 0 or epoch_id == num_epoch - 1):
@@ -282,6 +291,8 @@ def main(argv=None) -> PT.TrainState:
                 terms = evaluate_r(net, mano_stack, assets, loss_cfg, eval_loader, device, backend,
                                    max_batches=int(train_cfg.get("eval_max_batches", 0) or 0),
                                    on_first_batch=certify)
+                if not coordinator:
+                    continue
                 _logger.info("%s epoch %04d refine eval | %s", split, epoch_id,
                              " | ".join(f"{k}: {v:f}" for k, v in sorted(terms.items())))
                 for k, v in terms.items():

@@ -89,8 +89,17 @@ def pair_d2(xc: torch.Tensor, y4: torch.Tensor) -> torch.Tensor:
     """Squared distances [G, yg, P1, n] with the kernel's rounding:
     d = x - y per coordinate in f32, then fl(d0*d0), fma(d1, d1, .),
     fma(d2, d2, .). Each fma is formed exactly in f64 (a product of two f32
-    is exact there) and rounded once to f32. xc [G, yg, P1, 3], y4 [G, n, 4]."""
-    return sq_norm_rn(xc[:, :, :, None, :] - y4[:, None, None, :, :3])
+    is exact there) and rounded once to f32. xc [G, yg, P1, 3], y4 [G, n, 4].
+    The same arithmetic as `sq_norm_rn`, one coordinate at a time so that
+    every operand is contiguous (bit-equal, ~1.8x faster on the CPU)."""
+    x = xc.permute(3, 0, 1, 2).unsqueeze(-1)  # [3, G, yg, P1, 1]
+    y = y4[..., :3].permute(2, 0, 1)[:, :, None, None, :]  # [3, G, 1, 1, n]
+    d0 = x[0] - y[0]
+    s = (d0 * d0).double()
+    d1 = (x[1] - y[1]).double()
+    s = d1.mul_(d1).add_(s).float().double()
+    d2 = (x[2] - y[2]).double()
+    return d2.mul_(d2).add_(s).float()
 
 
 def sq_norm_rn(d: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,6 @@
 """The G, R and FID-encoder train steps, their optimizer and the G sampler
-(port of oakink2_tamf_tpu/parallel/train.py:39-380), on one device for now.
+(port of oakink2_tamf_tpu/parallel/train.py:39-380), on one device or on
+each rank of a process group (parallel/mesh.py).
 
 Optimizer parity (reference launch/train.py:469-479, util/net_util.py:13):
 - PER-PARAMETER gradient clip to L2 norm 0.1 (each tensor on its own, not a
@@ -17,6 +18,18 @@ G's step: timesteps from the batch (`t`, `t_weights`: an importance
 resampler) or uniform; the GT side of the extra loss under torch.no_grad()
 outside the loss; the diffusion loss and the extra loss on the model
 output; backward; clip, AdamW, LR step.
+
+Under a live process group of W ranks, each holding b rows of a global
+batch, every step computes what one process computes on the W*b rows (the
+JAX package's GSPMD step): the gradients are the ranks' mean
+(mesh.all_reduce_grads_, before the clip); the metrics are reduced as the
+batch means or sums they are; G's in-step timesteps and q_sample noise are
+this rank's rows of one draw over the global batch from a generator in the
+same state on every rank. G's extra loss sums over the batch where its
+diffusion loss means, so its extra terms enter backward() scaled by W: the
+mean over the ranks then gives their global sum. Dropout and the cond mask
+draw from torch's global generator, seeded per rank (utils/seeding.py):
+there W ranks differ from one process.
 """
 
 from __future__ import annotations
@@ -31,6 +44,7 @@ from ..core import mano as M
 from ..models import losses as LL
 from ..models.encoder import COND_KEYS as ENCODER_COND_KEYS
 from ..models.refine_r import refine_forward, sample_geometry, target_geometry
+from . import mesh
 
 # ---------------------------------------------------------------------------
 # Optimizer
@@ -104,6 +118,14 @@ class TrainState:
     model: torch.nn.Module
     optimizer: Optimizer
     step: int = 0
+
+
+def _step(state: TrainState) -> None:
+    """After backward(): the gradients' mean over the ranks (under a
+    process group), then clip, AdamW and the LR schedule."""
+    mesh.all_reduce_grads_(state.optimizer.params)
+    state.optimizer.step()
+    state.step += 1
 
 
 # ---------------------------------------------------------------------------
@@ -185,8 +207,11 @@ def make_g_train_step(
 
     step_fn(state, batch, *, generator=None, noise=None) -> metrics updates
     state in place. `generator` (on the batch's device) draws t when the
-    batch has none and the q_sample noise unless `noise` is given. The
-    gradients stay in the parameters' .grad until the next step."""
+    batch has none and the q_sample noise unless `noise` (this rank's rows)
+    is given; under a process group each is this rank's rows of a draw over
+    the global batch. The gradients stay in the parameters' .grad until
+    the next step. The metrics are the global batch's: `per_sample_mse` and
+    `per_sample_t` hold every rank's rows in rank order."""
     use_extra = mano_stack is not None and assets is not None and extra_cfg is not None
     with_chamfer = use_extra and (extra_cfg.coef_dist_h > 0.0 or extra_cfg.coef_dist_o > 0.0)
 
@@ -197,12 +222,17 @@ def make_g_train_step(
         model.train()
         x_start = batch["pose_repr"]
         bs = x_start.shape[0]
+        W = mesh.world_size()
         if "t" in batch:  # host-provided (importance resampler)
             t = batch["t"].to(torch.int64)
             weights = batch["t_weights"].to(torch.float32)
         else:
-            t = torch.randint(0, sched.num_timesteps, (bs,), generator=generator, device=x_start.device)
+            t = mesh.shard_rows(torch.randint(0, sched.num_timesteps, (W * bs,), generator=generator,
+                                              device=x_start.device))
             weights = torch.ones((bs,), dtype=torch.float32, device=x_start.device)
+        if noise is None:
+            noise = mesh.shard_rows(torch.randn((W * bs,) + tuple(x_start.shape[1:]), generator=generator,
+                                                device=x_start.device, dtype=x_start.dtype))
         cond = g_cond_from_batch(batch)
 
         gt_geom = None
@@ -224,13 +254,20 @@ def make_g_train_step(
                 mano_stack, assets, extra_cfg, aux["model_output"], batch,
                 chunk=chunk, gt_geom=gt_geom, dist_impl=dist_impl,
             )
-            total = total + extra
+            # a batch sum: W times its share, so the ranks' mean is the global sum
+            total = total + (extra * W if W > 1 else extra)
             metrics.update({f"extra/{k}": v for k, v in terms.items()})
         metrics["loss"] = total
         total.backward()
-        state.optimizer.step()
-        state.step += 1
-        return {k: v.detach() for k, v in metrics.items()}
+        _step(state)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if mesh.is_live():
+            metrics = mesh.reduce_metrics(metrics, {k: "sum" for k in metrics if k.startswith("extra/")})
+            if use_extra:
+                metrics["loss"] = metrics["diffusion_loss"] + metrics["extra/loss"]
+            metrics["per_sample_mse"] = mesh.all_gather_rows(metrics["per_sample_mse"])
+            metrics["per_sample_t"] = mesh.all_gather_rows(metrics["per_sample_t"])
+        return metrics
 
     return step_fn
 
@@ -271,9 +308,8 @@ def make_r_train_step(
         out.update(tgt)
         loss, terms = LL.segment_refine_loss(assets, loss_cfg, out, batch)
         loss.backward()
-        state.optimizer.step()
-        state.step += 1
-        return {k: v.detach() for k, v in terms.items()}
+        _step(state)
+        return mesh.reduce_metrics({k: v.detach() for k, v in terms.items()}, {})  # batch means
 
     return step_fn
 
@@ -302,8 +338,7 @@ def make_encoder_train_step() -> Callable[..., dict[str, torch.Tensor]]:
         out = model(x, {k: batch[k] for k in ENCODER_COND_KEYS})
         loss, metrics = LL.segment_encoder_loss(out, batch["action_label_id"])
         loss.backward()
-        state.optimizer.step()
-        state.step += 1
-        return {k: v.detach() for k, v in metrics.items()}
+        _step(state)
+        return mesh.reduce_metrics({k: v.detach() for k, v in metrics.items()}, {})  # batch means
 
     return step_fn

@@ -59,6 +59,19 @@ R_KEYS = ("pose_repr", "sample_pose_repr", "mask", "shape", "hand_side", "obj_tr
           "obj_embedding", "obj_mask", "obj_points")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch single-threaded for this file under pytest-xdist: the workers
+    share the cores, and each one's intra-op threads would spin against the
+    others' (six concurrent train_r.main smoke runs took ~144 s each at 8
+    threads, ~38 s at 1, on an 8-core host). A serial run keeps them all."""
+    n = torch.get_num_threads()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.from_numpy(np.array(a))
 
@@ -156,15 +169,22 @@ def _init_r(b, cfg, seed=0):
                                               np.zeros(b["mask"].shape + (778,), np.float32), cond))
 
 
+@pytest.fixture(scope="module")
+def jax_r_reference():
+    """The batch, the JAX weights and the JAX package's step on them, built
+    once for every route of the port."""
+    b = _batch(4)
+    jparams = _init_r(b, SMALL)
+    return b, jparams, _jax_r_step(b, jparams, SMALL)
+
+
 @pytest.mark.parametrize("backend", ["auto", "cull"])
-def test_r_train_step_matches_jax(backend):
+def test_r_train_step_matches_jax(backend, jax_r_reference):
     """One whole R train step, port on the CPU vs the JAX package's
     make_r_train_step(mesh=None) on the same weights and batch, dropout 0.
     The JAX CPU route is its exact XLA scan; the port runs its all-pairs
     route ("auto" at 64 points) or the culled one."""
-    b = _batch(4)
-    jparams = _init_r(b, SMALL)
-    jm, jclipped, jnew = _jax_r_step(b, jparams, SMALL)
+    b, jparams, (jm, jclipped, jnew) = jax_r_reference
 
     net = R.SegmentRefineNet(R.RefineConfig(**SMALL))
     net.load_state_dict(from_jax.r_state_dict_from_flax(jparams))
