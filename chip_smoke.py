@@ -190,7 +190,22 @@ Phases (any failure exits non-zero and prints no result line):
    launch/train_r.main on two ranks through torchrun's environment, both
    on cuda:0 over gloo, kernels built cold by both into one dir, a shared
    target-h2o cache dir: parameters bitwise equal, the cache complete,
-   save/ on rank 0 alone. A rank that fails fails the run.
+   save/ on rank 0 alone. A rank that fails fails the run. In (b) each
+   rank also runs launch/train_g.evaluate_g (the smoke config's G, DDPM,
+   the extra loss through #6/#8) on its 8 of 16 global rows: its terms
+   within rtol 1e-5 of one process's on the 16 (each global row its own
+   noise);
+24. the PointBERT tower (models/pointbert.py) at full width (8192 points,
+   512 groups of 32, depth 12, width 384, 6 heads, random weights from
+   seed 0) on the box toolkit's clouds, TF32 off: FPS indices equal on the
+   card and the CPU for 2 clouds, the card's embeddings within 1e-4 of the
+   CPU's max-abs; at batch 16 and 64 FPS, knn grouping, the tokenizer, the
+   transformer and the whole call timed with CUDA events, the clouds per
+   second and the peak GiB; FPS of one cloud (the 512-step loop's fixed
+   cost) and its host enqueue time;
+25. launch/compute_obj_assets.main on the card on 3 box meshes written to
+   a temporary dir: 3 clouds equal to mesh_io.sample_surface's and 3
+   finite 768-d embeddings, the first within 1e-4 of the CPU's.
 
 The line before the last is the card's name and power limit
 (nvidia-smi); before it, one JSON line with every kernel's numbers. The
@@ -4227,6 +4242,56 @@ def _spawn_ranks(args_for_rank, shared: str, env_for_rank=None, cwd_for_rank=Non
     return outs
 
 
+EVAL_ROWS = 16  # one global batch of the smoke config's test split
+EVAL_REL = 1e-5  # each eval term, two ranks' against one process's
+
+
+def smoke_eval(dev, rank: int | None = None) -> tuple[dict, dict]:
+    """launch/train_g.evaluate_g on the smoke config (config/synthetic_smoke.yml:
+    its G with weights from seed 0, DDPM at its 8 steps, the extra loss at
+    ExtraLossConfig's coefficients through #6/#8) over one global batch of
+    the first EVAL_ROWS test segments, collated explicitly: all of them, or
+    rank `rank`'s rows [8 r, 8 r + 8) under a live group of 2; the sampling
+    generator seeded 0 in every process. -> (terms, the launches of #6/#8)."""
+    import argparse
+
+    import torch
+
+    from oakink2_tamf_tpu_torch.core import diffusion as D
+    from oakink2_tamf_tpu_torch.core import mano as M
+    from oakink2_tamf_tpu_torch.data.collate import SegmentCollate
+    from oakink2_tamf_tpu_torch.launch import common, param, train_g
+    from oakink2_tamf_tpu_torch.models import losses as LL
+    from oakink2_tamf_tpu_torch.models.refine_r import stack_mano_models
+    from oakink2_tamf_tpu_torch.ops import chamfer_loss as CL
+    from oakink2_tamf_tpu_torch.ops import chamfer_signed as CS
+    from oakink2_tamf_tpu_torch.parallel import train as PT
+    from oakink2_tamf_tpu_torch.runtime.config import ConfigRegistry
+
+    reg = ConfigRegistry("train_g")
+    for fn in (param.reg_base_param, param.reg_model_param, param.reg_diffusion_param):
+        fn(reg)
+    parser = argparse.ArgumentParser()
+    reg.hook(parser)
+    smoke = os.path.join(os.path.dirname(os.path.abspath(__file__)), "config", "synthetic_smoke.yml")
+    reg.parse(parser, ["--cfg", smoke])
+    torch.manual_seed(0)
+    model = train_g.build_model(reg).to(dev)
+    sched = D.tamf_schedule(int(reg.select("diffusion").get("steps", 1000))).to(dev)
+    data_cfg = reg.select("data")
+    ds = common.build_dataset(reg, "test")
+    rows = range(EVAL_ROWS) if rank is None else range(rank * EVAL_ROWS // 2, (rank + 1) * EVAL_ROWS // 2)
+    batch = SegmentCollate(max_nobj=int(data_cfg.get("max_nobj", 4)),
+                           n_obj_points=int(data_cfg.get("n_obj_points", 2048)))([ds[i] for i in rows])
+    mano = stack_mano_models(M.get_mano_model(None, "right"), M.get_mano_model(None, "left"), dev)
+    kernels = {"nn_signed": CS.KERNEL, "dist_loss": CL.KERNEL}
+    _zero_counts(kernels)
+    terms = train_g.evaluate_g(PT.make_g_sampler(sched), model, mano, LL.load_contact_assets(device=dev),
+                               LL.ExtraLossConfig(), [batch], common.build_clip(reg, dev), dev,
+                               torch.Generator(device=dev).manual_seed(0))
+    return terms, {n: k.launches for n, k in kernels.items()}
+
+
 def _two_rank_worker(shared: str, rank: int) -> None:
     """(b)'s rank: the G and R cells on cuda:0 in a gloo group of 2, rows
     [32 r, 32 r + 32) of the same 64; one step each with its loss and
@@ -4267,6 +4332,10 @@ def _two_rank_worker(shared: str, rank: int) -> None:
         print(f"rank {rank}: {label} on {TRAIN_BS // 2} of {TRAIN_BS} rows: loss {res[label]['loss']:.6f}, steps "
               f"{first:.3f} / {res[label]['second_step_s']:.3f} s, launches in 2 steps {res[label]['launches']}, "
               f"gloo all-reduce {res[label]['allreduce_ms']:.3f} ms", flush=True)
+    t0 = time.perf_counter()
+    res["eval"], res["eval_launches"] = smoke_eval(dev, rank)
+    print(f"rank {rank}: evaluate_g on {EVAL_ROWS // 2} of {EVAL_ROWS} rows in {time.perf_counter() - t0:.2f} s, "
+          f"launches {res['eval_launches']}", flush=True)
     torch.save(res, os.path.join(shared, f"rank{rank}.pt"))
     torch.distributed.destroy_process_group()
 
@@ -4277,12 +4346,18 @@ def group_two_ranks(one: dict) -> None:
     G step and the all-pairs R step: each rank's loss within rtol 1e-5 of
     (a)'s one-rank step and each gradient within 1e-5 of its norm; the
     ranks' parameters bitwise equal after 2 steps; #6/#8 and #1/#4 once per
-    step on each rank."""
+    step on each rank. Then each rank's G eval pass (smoke_eval) on its 8 of
+    16 global rows: every term within rtol EVAL_REL of one process's on the
+    16, #6 and #8 launched on both ranks."""
     import tempfile
 
     import torch
 
     card = card_line()
+    t0 = time.perf_counter()
+    eval_one, eval_launches = smoke_eval(torch.device("cuda", 0))
+    eval_one_s = time.perf_counter() - t0
+    require(all(v > 0 for v in eval_launches.values()), f"(b) evaluate_g in one process: launches {eval_launches}")
     with tempfile.TemporaryDirectory(prefix="tamf_ranks_") as shared:
         t0 = time.perf_counter()
         outs = _spawn_ranks(lambda r: ["--two-rank-worker", shared, str(r)], shared)
@@ -4309,6 +4384,21 @@ def group_two_ranks(one: dict) -> None:
               f"{res[0][label]['second_step_s']:.3f} / {res[1][label]['second_step_s']:.3f} s on the shared card "
               f"(one rank alone {want['step_s']:.4f} s); gloo all-reduce {res[0][label]['allreduce_ms']:.3f} ms; "
               f"both ranks {wall:.1f} s ({card})", flush=True)
+    gap = 0.0
+    for r in range(2):
+        got = res[r]["eval"]
+        require(set(got) == set(eval_one), f"(b) evaluate_g rank {r}: terms {sorted(got)} vs {sorted(eval_one)}")
+        for k, v in eval_one.items():
+            rel = abs(got[k] - v) / max(abs(v), 1e-12)
+            require(rel <= EVAL_REL, f"(b) evaluate_g rank {r}: {k} {got[k]} vs one process's {v}")
+            gap = max(gap, rel)
+        require(all(v > 0 for v in res[r]["eval_launches"].values()),
+                f"(b) evaluate_g rank {r}: launches {res[r]['eval_launches']}")
+    print(f"two ranks sharing the card (gloo), G eval pass (evaluate_g, smoke config, DDPM): each rank's terms on its "
+          f"{EVAL_ROWS // 2} of {EVAL_ROWS} rows within {gap:.2e} (relative) of one process's on the {EVAL_ROWS} "
+          f"({', '.join(f'{k} {v:.6g}' for k, v in sorted(eval_one.items()))}); one process {eval_one_s:.2f} s, "
+          f"launches {eval_launches}; rank launches {[res[r]['eval_launches'] for r in range(2)]} ({card})",
+          flush=True)
 
 
 def _train_r_worker(shared: str) -> None:
@@ -4377,6 +4467,153 @@ def train_r_two_ranks() -> None:
           f"equal after {res[0]['step']} step; the shared cache {len(npy)} files + meta.json; save/ "
           f"{saved[0]} on rank 0, none on rank 1; kernels built cold by both ranks into one dir: {built}; "
           f"launches per rank {[r['launches'] for r in res]} ({card})", flush=True)
+
+
+POINTBERT_BATCHES = (16, 64)
+POINTBERT_REL = 1e-4  # the card's embedding against the CPU's, of the CPU embedding's max-abs
+
+
+def _pointbert_model():
+    """(PointTransformer at PointBertConfig's defaults in eval mode on the
+    CPU, weights from seed 0 as compute_obj_assets makes them, its copy on
+    the card)."""
+    import copy
+
+    import torch
+
+    from oakink2_tamf_tpu_torch.models import pointbert as PB
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        cpu = PB.PointTransformer(PB.PointBertConfig()).eval().requires_grad_(False)
+    return cpu, copy.deepcopy(cpu).to("cuda")
+
+
+def pointbert_clouds(B: int, n_points: int = 8192):
+    """B object clouds [B, n_points, 3] on the CPU: the box toolkit's
+    surface samples (data/fabricate.py), one box per cloud."""
+    import numpy as np
+    import torch
+
+    from oakink2_tamf_tpu_torch.data.fabricate import box_surface_points
+
+    return torch.from_numpy(np.stack([box_surface_points(f"obj_{i:03d}", n_points) for i in range(B)]))
+
+
+def pointbert_path() -> dict:
+    """The PointBERT tower at full width (phase 24): FPS indices and the
+    embeddings of 2 clouds on the card against the CPU; then at each of
+    POINTBERT_BATCHES the stages timed with CUDA events (3 runs after a
+    warm-up): FPS, knn grouping on FPS's centres, the tokenizer on the
+    groups, the transformer on the tokens, the whole call; the clouds per
+    second, FPS's share of the whole, the peak GiB; FPS on one cloud and
+    the host time of its enqueue."""
+    import torch
+
+    from oakink2_tamf_tpu_torch.models import pointbert as PB
+
+    card = card_line()
+    cpu, model = _pointbert_model()
+    cfg = model.cfg
+    dev = torch.device("cuda")
+    clouds = pointbert_clouds(max(POINTBERT_BATCHES))
+    t0 = time.perf_counter()
+    idx_cpu = PB.farthest_point_sampling(clouds[:2], cfg.num_group)
+    cpu_fps_s = time.perf_counter() - t0
+    idx_gpu = PB.farthest_point_sampling(clouds[:2].to(dev), cfg.num_group).cpu()
+    require(torch.equal(idx_gpu, idx_cpu), f"FPS: the card picks {int((idx_gpu != idx_cpu).sum())} other points")
+    with torch.inference_mode():
+        want = cpu(clouds[:2])
+        got = model(clouds[:2].to(dev)).cpu()
+    require(got.shape == (2, 2 * cfg.trans_dim) and bool(torch.isfinite(got).all()), f"embedding {tuple(got.shape)}")
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    require(err <= POINTBERT_REL * scale, f"embedding on the card {err:.3e} from the CPU's (max-abs {scale:.4f})")
+    print(f"PointBERT at full width (8192 points, {cfg.num_group} groups of {cfg.group_size}, depth {cfg.depth}, "
+          f"width {cfg.trans_dim}, {cfg.num_heads} heads): FPS indices of 2 clouds equal on the card and the CPU "
+          f"(CPU {cpu_fps_s:.2f} s); embeddings within {err:.3e} of the CPU's (max-abs {scale:.4f}, bound "
+          f"{POINTBERT_REL:g} of it) ({card})", flush=True)
+    out = {"card": card, "emb_max_abs_err": err, "emb_max_abs": scale, "batches": {}}
+    with torch.inference_mode():
+        for B in POINTBERT_BATCHES:
+            x = clouds[:B].to(dev)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            emb = model(x)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            require(emb.shape == (B, 2 * cfg.trans_dim) and bool(torch.isfinite(emb).all()), f"batch {B}: {emb.shape}")
+            idx = PB.farthest_point_sampling(x, cfg.num_group)
+            centers = torch.gather(x, 1, idx[..., None].expand(-1, -1, 3))
+            neigh, _ = PB.knn_group(x, centers, cfg.group_size)
+            tokens = model.tokenize(neigh)
+            ms = {"fps": cuda_time_ms(lambda: PB.farthest_point_sampling(x, cfg.num_group), reps=3),
+                  "knn": cuda_time_ms(lambda: PB.knn_group(x, centers, cfg.group_size), reps=3),
+                  "tokenizer": cuda_time_ms(lambda: model.tokenize(neigh), reps=3),
+                  "transformer": cuda_time_ms(lambda: model.transform(tokens, centers), reps=3),
+                  "whole": cuda_time_ms(lambda: model(x), reps=3)}
+            rate = B / ms["whole"] * 1e3
+            out["batches"][B] = dict(ms=ms, clouds_per_s=rate, peak_gib=peak)
+            print(f"PointBERT batch {B}: FPS {ms['fps']:.3f} ms ({100 * ms['fps'] / ms['whole']:.1f}% of the whole), "
+                  f"knn {ms['knn']:.3f} ms, tokenizer {ms['tokenizer']:.3f} ms, transformer "
+                  f"{ms['transformer']:.3f} ms, whole {ms['whole']:.3f} ms = {rate:.1f} clouds/s; peak {peak:.2f} GiB "
+                  f"({card})", flush=True)
+            del x, idx, centers, neigh, tokens, emb
+        one = clouds[:1].to(dev)
+        fps1 = cuda_time_ms(lambda: PB.farthest_point_sampling(one, cfg.num_group), reps=3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        PB.farthest_point_sampling(one, cfg.num_group)
+        host = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+    out.update(fps_one_cloud_ms=fps1, fps_one_cloud_host_ms=host)
+    print(f"PointBERT FPS of one 8192-point cloud: {fps1:.3f} ms on the card for {cfg.num_group} steps "
+          f"({1e3 * fps1 / cfg.num_group:.2f} us per step); its host enqueue {host:.3f} ms ({card})", flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def obj_assets_entry_point() -> None:
+    """launch/compute_obj_assets.main on the card (its default device) on 3
+    box meshes written to a temporary dir (phase 25): the clouds equal to
+    mesh_io.sample_surface's (seed 0), 3 finite 768-d embeddings, the first
+    within POINTBERT_REL of the CPU tower's on the same cloud."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from oakink2_tamf_tpu_torch.data.fabricate import BOX_FACES, box_verts
+    from oakink2_tamf_tpu_torch.launch import compute_obj_assets
+    from oakink2_tamf_tpu_torch.models import pointbert as PB
+    from oakink2_tamf_tpu_torch.utils import mesh_io
+
+    oids = [f"obj_{i:03d}" for i in range(3)]
+    with tempfile.TemporaryDirectory(prefix="tamf_obj_assets_") as tmp:
+        mesh_dir, pc, emb = (os.path.join(tmp, d) for d in ("meshes", "pc", "emb"))
+        os.makedirs(mesh_dir)
+        for oid in oids:
+            mesh_io.save_obj(os.path.join(mesh_dir, f"{oid}.obj"), box_verts(oid), BOX_FACES)
+        t0 = time.perf_counter()
+        got = compute_obj_assets.main(["--mesh_dir", mesh_dir, "--out_pointcloud", pc, "--out_embedding", emb,
+                                       "--commit"])
+        wall = time.perf_counter() - t0
+        require(got == oids, f"compute_obj_assets embedded {got}")
+        clouds, embs = [], []
+        for oid in oids:
+            v, f = mesh_io.load_obj(os.path.join(mesh_dir, f"{oid}.obj"))
+            pts = np.load(os.path.join(pc, f"{oid}.npz"))["point"]
+            require(np.array_equal(pts, mesh_io.sample_surface(v, f, 8192)), f"{oid}: the cloud differs")
+            e = np.load(os.path.join(emb, f"{oid}.npy"))
+            require(e.shape == (768,) and e.dtype == np.float32 and np.isfinite(e).all(), f"{oid}: {e.shape}")
+            clouds.append(pts)
+            embs.append(e)
+    cpu, _ = _pointbert_model()
+    want = PB.compute_object_embedding(cpu, clouds[0])
+    err, scale = float(np.abs(embs[0] - want).max()), float(np.abs(want).max())
+    require(err <= POINTBERT_REL * scale, f"compute_obj_assets: {oids[0]} {err:.3e} from the CPU's")
+    print(f"compute_obj_assets.main on the card: {len(oids)} meshes in {wall:.2f} s (tower built and weights made "
+          f"included); clouds equal to sample_surface's; {oids[0]}'s embedding within {err:.3e} of the CPU's "
+          f"(max-abs {scale:.4f}) ({card_line()})", flush=True)
 
 
 def main() -> int:
@@ -4540,6 +4777,11 @@ def main() -> int:
     del one_rank
     phase("train_r.main on two ranks")
     train_r_two_ranks()
+    phase("PointBERT tower at full width")
+    pb_stats = pointbert_path()
+    print("pointbert: " + json.dumps(pb_stats), flush=True)
+    phase("compute_obj_assets entry point")
+    obj_assets_entry_point()
     # each kernel's count from the paths that run it: serving for #1/#2 (#1
     # also in sample_r and in compute_score's CR on its output and on the
     # real-format data, #2 also in the full-width G->R chain), the fused G

@@ -389,7 +389,10 @@ def p_sample(
 
 # ---------------------------------------------------------------------------
 # The samplers. Each draws from `generator` on `device` whatever noise it
-# is not given, in chain order: x_T first, then one draw per step.
+# is not given, in chain order: x_T first, then one draw per step. Every
+# draw goes through `draw(shape, generator, device)`, `_randn` unless the
+# caller passes another (parallel/mesh.global_randn: this rank's rows of a
+# draw over the global batch).
 # ---------------------------------------------------------------------------
 
 
@@ -406,12 +409,12 @@ def _full_t(t_scalar: int, bs: int, device) -> torch.Tensor:
     return torch.full((bs,), t_scalar, dtype=torch.int64, device=device)
 
 
-def _chain_start(sched, shape, *, device, generator, noise, skip_timesteps, init_image):
+def _chain_start(sched, shape, *, device, generator, noise, skip_timesteps, init_image, draw=_randn):
     """(x at the first step, number of steps). Any `init_image` is
     q-sampled at the first step with the initial noise as the q_sample
     noise; `skip_timesteps` without one starts from a zeros image."""
     _check_shape("noise", noise, shape)
-    img = _randn(shape, generator, device) if noise is None else noise.to(device)
+    img = draw(shape, generator, device) if noise is None else noise.to(device)
     t_start = sched.num_timesteps - skip_timesteps
     if skip_timesteps and init_image is None:
         init_image = torch.zeros(shape, dtype=torch.float32, device=device)
@@ -420,11 +423,11 @@ def _chain_start(sched, shape, *, device, generator, noise, skip_timesteps, init
     return img, t_start
 
 
-def _p_sample_steps(model_fn, sched, img, t_start, *, device, generator, step_noise, **step_kw):
+def _p_sample_steps(model_fn, sched, img, t_start, *, device, generator, step_noise, draw=_randn, **step_kw):
     """Yield each ancestral step's {"sample", "pred_xstart"}, t = t_start-1 .. 0."""
     _check_shape("step_noise", step_noise, (t_start,) + tuple(img.shape))
     for i, t_scalar in enumerate(range(t_start - 1, -1, -1)):
-        z = _randn(img.shape, generator, device) if step_noise is None else step_noise[i].to(device)
+        z = draw(img.shape, generator, device) if step_noise is None else step_noise[i].to(device)
         out = p_sample(model_fn, sched, img, _full_t(t_scalar, img.shape[0], device), z, **step_kw)
         img = out["sample"]
         yield out
@@ -437,6 +440,7 @@ def p_sample_loop(
     *,
     device: torch.device | str,
     generator: torch.Generator | None = None,
+    draw: Callable[..., torch.Tensor] = _randn,
     noise: torch.Tensor | None = None,
     step_noise: torch.Tensor | None = None,
     clip_denoised: bool = False,
@@ -458,9 +462,9 @@ def p_sample_loop(
     initial noise, and skip_timesteps without one starts from a zeros image
     (so x_start = sqrt(1 - alpha_bar) * noise)."""
     img, t_start = _chain_start(sched, shape, device=device, generator=generator, noise=noise,
-                                skip_timesteps=skip_timesteps, init_image=init_image)
+                                skip_timesteps=skip_timesteps, init_image=init_image, draw=draw)
     for out in _p_sample_steps(model_fn, sched, img, t_start, device=device, generator=generator,
-                               step_noise=step_noise, clip_denoised=clip_denoised,
+                               step_noise=step_noise, draw=draw, clip_denoised=clip_denoised,
                                denoised_fn=denoised_fn, cond_fn=cond_fn, const_noise=const_noise,
                                model_mean_type=model_mean_type, model_var_type=model_var_type):
         img = out["sample"]
@@ -474,6 +478,7 @@ def p_sample_loop_trajectory(
     *,
     device: torch.device | str,
     generator: torch.Generator | None = None,
+    draw: Callable[..., torch.Tensor] = _randn,
     noise: torch.Tensor | None = None,
     step_noise: torch.Tensor | None = None,
     clip_denoised: bool = False,
@@ -493,12 +498,12 @@ def p_sample_loop_trajectory(
     "pred_xstart" stacked the same way}. With `dump_steps` only those step
     indices are kept, in ascending order."""
     img, t_start = _chain_start(sched, shape, device=device, generator=generator, noise=noise,
-                                skip_timesteps=skip_timesteps, init_image=init_image)
+                                skip_timesteps=skip_timesteps, init_image=init_image, draw=draw)
     keep = sorted(int(i) for i in dump_steps) if dump_steps is not None else range(t_start)
     wanted = set(keep)
     traj, preds = {}, {}
     for i, out in enumerate(_p_sample_steps(
-            model_fn, sched, img, t_start, device=device, generator=generator, step_noise=step_noise,
+            model_fn, sched, img, t_start, device=device, generator=generator, step_noise=step_noise, draw=draw,
             clip_denoised=clip_denoised, denoised_fn=denoised_fn, cond_fn=cond_fn,
             const_noise=const_noise, model_mean_type=model_mean_type, model_var_type=model_var_type)):
         img = out["sample"]
@@ -522,6 +527,7 @@ def ddim_sample_loop(
     *,
     device: torch.device | str,
     generator: torch.Generator | None = None,
+    draw: Callable[..., torch.Tensor] = _randn,
     noise: torch.Tensor | None = None,
     step_noise: torch.Tensor | None = None,
     clip_denoised: bool = False,
@@ -537,7 +543,7 @@ def ddim_sample_loop(
     T = sched.num_timesteps
     _check_shape("noise", noise, shape)
     _check_shape("step_noise", step_noise, (T,) + tuple(shape))
-    img = _randn(shape, generator, device) if noise is None else noise.to(device)
+    img = draw(shape, generator, device) if noise is None else noise.to(device)
     for i, t_scalar in enumerate(range(T - 1, -1, -1)):
         t = _full_t(t_scalar, shape[0], device)
         out = p_mean_variance(model_fn, sched, img, t, clip_denoised=clip_denoised, denoised_fn=denoised_fn,
@@ -557,7 +563,7 @@ def ddim_sample_loop(
             + torch.sqrt(1 - alpha_bar_prev - sigma**2) * eps
         )
         if eta > 0:
-            z = _randn(shape, generator, device) if step_noise is None else step_noise[i].to(device)
+            z = draw(shape, generator, device) if step_noise is None else step_noise[i].to(device)
             nonzero_mask = (t != 0).to(img.dtype).reshape((-1,) + (1,) * (img.ndim - 1))
             mean_pred = mean_pred + nonzero_mask * sigma * z
         img = mean_pred
@@ -571,6 +577,7 @@ def plms_sample_loop(
     *,
     device: torch.device | str,
     generator: torch.Generator | None = None,
+    draw: Callable[..., torch.Tensor] = _randn,
     noise: torch.Tensor | None = None,
     clip_denoised: bool = False,
     order: int = 2,
@@ -586,7 +593,7 @@ def plms_sample_loop(
     if not 1 <= order <= 4:
         raise ValueError(f"PLMS order {order} not in 1..4")
     _check_shape("noise", noise, shape)
-    img = _randn(shape, generator, device) if noise is None else noise.to(device)
+    img = draw(shape, generator, device) if noise is None else noise.to(device)
     ndim = len(shape)
 
     def get_eps_x0(x, t):
@@ -635,6 +642,7 @@ def p_sample_loop_parallel(
     *,
     device: torch.device | str,
     generator: torch.Generator | None = None,
+    draw: Callable[..., torch.Tensor] = _randn,
     noise: torch.Tensor | None = None,
     t_noise: torch.Tensor | None = None,
     window: int = 32,
@@ -644,6 +652,7 @@ def p_sample_loop_parallel(
     cond_fn=None,
     model_mean_type: ModelMeanType = ModelMeanType.START_X,
     model_var_type: ModelVarType = ModelVarType.FIXED_SMALL,
+    batch_max: Callable[[torch.Tensor], torch.Tensor] | None = None,
     return_info: bool = False,
 ):
     """Picard-parallel ancestral sampling (ParaDiGMS, arXiv:2305.16317).
@@ -664,6 +673,9 @@ def p_sample_loop_parallel(
     t at index t (not in chain order). Without it each timestep's noise is
     drawn from `generator` when the window first reaches it, so in chain
     order. The exit test reads the slide on the host: one sync per sweep.
+    `batch_max` maps the window's per-position drift of this process's
+    rows to that of the global batch (parallel/mesh.all_reduce_max), so
+    that every rank slides as one process on the global batch would.
 
     Returns the sample, or (sample, {"n_sweeps", "n_model_evals"}) (ints)
     with return_info."""
@@ -672,12 +684,12 @@ def p_sample_loop_parallel(
     bs = shape[0]
     _check_shape("noise", noise, shape)
     _check_shape("t_noise", t_noise, (T,) + tuple(shape))
-    img = _randn(shape, generator, device) if noise is None else noise.to(device)
+    img = draw(shape, generator, device) if noise is None else noise.to(device)
     z_by_t: dict[int, torch.Tensor] = {}
 
     def z_of(t_scalar: int) -> torch.Tensor:
         if t_scalar not in z_by_t:
-            z_by_t[t_scalar] = (_randn(shape, generator, device) if t_noise is None
+            z_by_t[t_scalar] = (draw(shape, generator, device) if t_noise is None
                                 else t_noise[t_scalar].to(device))
         return z_by_t[t_scalar]
 
@@ -705,6 +717,8 @@ def p_sample_loop_parallel(
         y = (mean + nz * torch.exp(0.5 * out["log_variance"]) * z).reshape(buf[:W].shape)
         new_vals = buf[0] + torch.cumsum(y - buf[:W], dim=0)  # positions s+1 .. s+W
         drift = torch.square(new_vals - buf[1:]).reshape(W, bs, -1).mean(-1).amax(-1)
+        if batch_max is not None:
+            drift = batch_max(drift)
         ok = drift <= tol2 * sched.posterior_variance[ts_win]
         m = min(1 + int(torch.cumprod(ok[1:].to(torch.int32), 0).sum()), T - s)
         buf = torch.cat([buf[:1], new_vals])[torch.clamp(fill + m, max=W)]
@@ -729,6 +743,8 @@ def sample_loop(
     device: torch.device | str,
     generator: torch.Generator | None = None,
     noise: dict[str, torch.Tensor] | None = None,
+    draw: Callable[..., torch.Tensor] = _randn,
+    batch_max: Callable[[torch.Tensor], torch.Tensor] | None = None,
     parallel_window: int = 32,
     parallel_tol: float = 1e-2,
     model_mean_type: ModelMeanType = ModelMeanType.START_X,
@@ -739,8 +755,9 @@ def sample_loop(
     keywords, e.g. {"noise": x_T, "step_noise": ...} for "ddpm" or
     {"noise": x_T, "t_noise": ...} for "parallel". DDIM and PLMS take the
     mean type only (their variance is FIXED_SMALL, as in JAX): another
-    variance type raises there."""
-    kw = dict(device=device, generator=generator, model_mean_type=model_mean_type, **(noise or {}))
+    variance type raises there. `draw` draws what `noise` lacks, and
+    `batch_max` is the parallel sampler's (see each sampler)."""
+    kw = dict(device=device, generator=generator, draw=draw, model_mean_type=model_mean_type, **(noise or {}))
     if sampler in ("ddim", "plms") and model_var_type != ModelVarType.FIXED_SMALL:
         raise ValueError(f"sampler {sampler!r} takes no model_var_type (got {model_var_type})")
     if sampler == "ddpm":
@@ -750,8 +767,8 @@ def sample_loop(
     if sampler == "plms":
         return plms_sample_loop(model_fn, sched, shape, **kw)
     if sampler == "parallel":
-        return p_sample_loop_parallel(model_fn, sched, shape, window=parallel_window,
-                                      tol=parallel_tol, model_var_type=model_var_type, **kw)
+        return p_sample_loop_parallel(model_fn, sched, shape, window=parallel_window, tol=parallel_tol,
+                                      batch_max=batch_max, model_var_type=model_var_type, **kw)
     raise ValueError(f"unknown sampler {sampler!r}: one of {SAMPLERS}")
 
 

@@ -3,8 +3,8 @@
 Input: the JAX models' param trees as nested dicts of numpy arrays (the
 `params` collection or the whole variables dict). Output: state_dicts of
 `models/mdm_g.InteractionSegmentMDM`, `models/refine_r.SegmentRefineNet`,
-`models/encoder.SegmentEncoder` and `models/clip_text.ClipTextEncoder`, in
-the reference torch key layout.
+`models/encoder.SegmentEncoder`, `models/clip_text.ClipTextEncoder` and
+`models/pointbert.PointTransformer`, in the reference torch key layout.
 
 The inverse of the JAX package's interop/torch_port `_lin/_attn/_trunk`:
 flax Dense kernel [in, out] -> Linear weight [out, in]; per-head attention
@@ -126,4 +126,48 @@ def clip_state_dict_from_flax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor
         sd.update(_attn(bp["attn"], f"{q}.attn"))
         sd.update(_lin(bp["mlp_fc"], f"{q}.mlp.c_fc"))
         sd.update(_lin(bp["mlp_proj"], f"{q}.mlp.c_proj"))
+    return sd
+
+
+def _conv(p: Mapping[str, Any], prefix: str) -> dict[str, torch.Tensor]:
+    """A flax Dense over the channel axis -> a Conv1d(k=1) weight [out, in, 1]."""
+    return {f"{prefix}.weight": _t(np.asarray(p["kernel"]).T[:, :, None]), f"{prefix}.bias": _t(p["bias"])}
+
+
+def _bn(p: Mapping[str, Any], s: Mapping[str, Any], prefix: str) -> dict[str, torch.Tensor]:
+    return {f"{prefix}.weight": _t(p["scale"]), f"{prefix}.bias": _t(p["bias"]),
+            f"{prefix}.running_mean": _t(s["mean"]), f"{prefix}.running_var": _t(s["var"]),
+            f"{prefix}.num_batches_tracked": torch.tensor(0)}
+
+
+def pointbert_state_dict_from_flax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX PointTransformer variables ({params, batch_stats}) ->
+    PointTransformer state_dict: the inverse of the JAX package's
+    models/pointbert.convert_pointbert_state_dict (the tokenizer's Dense
+    kernels become Conv1d weights, the other Dense kernels Linear weights,
+    batch_stats the BatchNorm running mean and variance)."""
+    p, s = tree["params"], tree["batch_stats"]["encoder"]
+    e = p["encoder"]
+    sd = {}
+    sd.update(_conv(e["conv1a"], "encoder.first_conv.0"))
+    sd.update(_bn(e["bn1"], s["bn1"], "encoder.first_conv.1"))
+    sd.update(_conv(e["conv1b"], "encoder.first_conv.3"))
+    sd.update(_conv(e["conv2a"], "encoder.second_conv.0"))
+    sd.update(_bn(e["bn2"], s["bn2"], "encoder.second_conv.1"))
+    sd.update(_conv(e["conv2b"], "encoder.second_conv.3"))
+    sd.update(_lin(p["reduce_dim"], "reduce_dim"))
+    sd["cls_token"] = _t(p["cls_token"])
+    sd["cls_pos"] = _t(p["cls_pos"])
+    sd.update(_lin(p["pos_fc1"], "pos_embed.0"))
+    sd.update(_lin(p["pos_fc2"], "pos_embed.2"))
+    sd.update(_ln(p["norm"], "norm"))
+    n = sum(1 for k in p if k.startswith("block_"))
+    for i in range(n):
+        bp, q = p[f"block_{i}"], f"blocks.blocks.{i}"
+        sd.update(_ln(bp["norm1"], f"{q}.norm1"))
+        sd[f"{q}.attn.qkv.weight"] = _t(np.asarray(bp["qkv"]["kernel"]).T)
+        sd.update(_lin(bp["proj"], f"{q}.attn.proj"))
+        sd.update(_ln(bp["norm2"], f"{q}.norm2"))
+        sd.update(_lin(bp["mlp_fc1"], f"{q}.mlp.fc1"))
+        sd.update(_lin(bp["mlp_fc2"], f"{q}.mlp.fc2"))
     return sd

@@ -79,15 +79,18 @@ def evaluate_g(sample_fn, model, mano_stack, assets, extra_cfg, loader, clip, de
     segments with `sample_fn` (parallel/train.make_g_sampler), then report
     the masked MSE against the GT and the geometric extra loss terms of the
     samples (batch sums, as in training), meaned over the batches of the
-    global batch (every rank runs its stripe: mesh.reduce_batch_means; the
-    sampling noise comes from `generator`, the same on every rank).
-    max_batches=0 runs the whole split."""
+    global batch (every rank runs its stripe: mesh.reduce_batch_means).
+    Each loader batch is this rank's rows [r*b, (r+1)*b) of a global batch,
+    and its sampling noise is those rows of one draw over the global batch
+    from `generator` (in the same state on every rank), drawn step by step:
+    every global row gets its own noise, as one process on the global
+    batch would draw it. max_batches=0 runs the whole split."""
     acc: dict[str, list] = {}
     for n, batch in enumerate(loader):
         if max_batches and n >= max_batches:
             break
         db = common.device_batch(common.attach_text_emb(batch, clip), device)
-        sample = sample_fn(model, db, generator)
+        sample = sample_fn(model, db, generator, global_batch=True)
         acc.setdefault("sample_mse", []).append(
             float(D.masked_l2(db["pose_repr"], sample, db["mask"]).mean())
         )

@@ -17,9 +17,11 @@ helpers here:
   unused parameter cannot stall a step, and torch.utils.checkpoint needs
   nothing more.
 - `shard_rows` cuts this rank's rows out of a draw over the global batch
-  (the step's timesteps and q_sample noise), `all_gather_rows` puts per-row
+  (the step's timesteps and q_sample noise; `global_randn` draws the
+  samplers' noise so in the eval pass), `all_gather_rows` puts per-row
   values back together, `reduce_metrics` and `reduce_batch_means` reduce
-  scalars as means or sums.
+  scalars as means or sums, `all_reduce_max` takes a maximum over the
+  ranks (the parallel sampler's slide).
 
 Every helper is the identity when no group is live. `is_coordinator()` (rank
 0) gates the side effects: checkpoints, summaries, the file log, traces.
@@ -105,6 +107,26 @@ def shard_rows(x: torch.Tensor) -> torch.Tensor:
     b = n // W
     r = rank()
     return x[r * b : (r + 1) * b]
+
+
+def global_randn(shape, generator: torch.Generator | None, device) -> torch.Tensor:
+    """This rank's rows of one standard normal float32 draw of W*shape[0]
+    rows from `generator`: the draw one process makes on the global batch,
+    one step at a time (a sampler's draw function, core/diffusion.py). With
+    one process it is that draw, bit for bit."""
+    shape = tuple(shape)
+    full = (world_size() * shape[0],) + shape[1:]
+    return shard_rows(torch.randn(full, generator=generator, device=device, dtype=torch.float32))
+
+
+def all_reduce_max(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise maximum of x over the ranks (x itself without a
+    group), on x's device."""
+    if not is_live():
+        return x
+    y = x.detach().to(_comm_device(), copy=True)
+    dist.all_reduce(y, op=dist.ReduceOp.MAX)
+    return y.to(x.device)
 
 
 def all_gather_rows(x: torch.Tensor) -> torch.Tensor:

@@ -164,25 +164,32 @@ def make_g_sampler(
     chain, for small batches: `parallel_window` steps per model call,
     slide tolerance `parallel_tol`); an unknown name raises ValueError.
 
-    sample_fn(model, batch, generator, noise=None) -> [bs, L, 99] runs the
-    chain under torch.inference_mode() with dropout off, on the batch's
-    device. `noise` holds the sampler's noise keywords (core/diffusion.py:
-    "noise" = x_T, "step_noise" in chain order, "t_noise" by timestep);
-    what it lacks is drawn from `generator`."""
+    sample_fn(model, batch, generator, noise=None, global_batch=False) ->
+    [bs, L, 99] runs the chain under torch.inference_mode() with dropout
+    off, on the batch's device. `noise` holds the sampler's noise keywords
+    (core/diffusion.py: "noise" = x_T, "step_noise" in chain order,
+    "t_noise" by timestep); what it lacks is drawn from `generator`. With
+    `global_batch` under a process group, `batch` is this rank's rows
+    [r*b, (r+1)*b) of a global batch and every rank must call together:
+    each draw is this rank's rows of one draw over the global batch
+    (mesh.global_randn), and the parallel sampler slides on the global
+    batch's drift, so the ranks' rows equal one process's on the global
+    batch. With one process `global_batch` changes nothing."""
     if sampler not in D.SAMPLERS:
         raise ValueError(f"unknown sampler {sampler!r}: one of {D.SAMPLERS}")
 
     @torch.inference_mode()
     def sample_fn(model: torch.nn.Module, batch: dict[str, Any], generator: torch.Generator | None,
-                  noise: dict[str, torch.Tensor] | None = None) -> torch.Tensor:
+                  noise: dict[str, torch.Tensor] | None = None, global_batch: bool = False) -> torch.Tensor:
         was_training = model.training
         model.eval()
+        rows = dict(draw=mesh.global_randn, batch_max=mesh.all_reduce_max) if global_batch else {}
         try:
             x = batch["pose_repr"]
             return D.sample_loop(
                 sampler, g_model_fn(model, g_cond_from_batch(batch)), sched, tuple(x.shape),
                 device=x.device, generator=generator, noise=noise,
-                parallel_window=parallel_window, parallel_tol=parallel_tol,
+                parallel_window=parallel_window, parallel_tol=parallel_tol, **rows,
             )
         finally:
             model.train(was_training)

@@ -1,5 +1,5 @@
-"""SHA256 pin check for licensed assets (copy of the JAX package's
-utils/integrity.verify_pinned).
+"""SHA256 pins for licensed assets (copy of the JAX package's
+utils/integrity: verify_pinned, load_pins, record_pin).
 
 Pin file format (`asset/SHA256SUMS`, sha256sum-compatible):
     <hex sha256>  <path relative to the pin file's directory>
@@ -40,7 +40,7 @@ def _find_pin_file(path: str) -> str | None:
         d = parent
 
 
-def _load_pins(pin_file: str) -> dict[str, str]:
+def load_pins(pin_file: str) -> dict[str, str]:
     pins: dict[str, str] = {}
     with open(pin_file) as f:
         for line in f:
@@ -61,7 +61,7 @@ def verify_pinned(path: str, *, what: str = "asset") -> bool:
         _logger.warning("%s %s is UNPINNED (no SHA256SUMS near it)", what, path)
         return False
     rel = os.path.relpath(os.path.abspath(path), os.path.dirname(pin_file))
-    expected = _load_pins(pin_file).get(rel.replace(os.sep, "/"))
+    expected = load_pins(pin_file).get(rel.replace(os.sep, "/"))
     if expected is None:
         _logger.warning("%s %s is UNPINNED (not listed in %s)", what, path, pin_file)
         return False
@@ -72,3 +72,34 @@ def verify_pinned(path: str, *, what: str = "asset") -> bool:
             f"{expected} ({pin_file})"
         )
     return True
+
+
+def record_pin(path: str, pin_file: str) -> None:
+    """Add the pin of `path` to `pin_file` (created when absent), writing
+    the same bytes as the JAX package's record_pin: the file's comment
+    lines kept (a default header for a new file), then every pin sorted
+    by path. Refuses to change an existing pin: delete its line first if
+    the upstream file legitimately changed."""
+    rel = os.path.relpath(os.path.abspath(path), os.path.dirname(os.path.abspath(pin_file)))
+    rel = rel.replace(os.sep, "/")
+    digest = sha256_file(path)
+    pins = load_pins(pin_file) if os.path.isfile(pin_file) else {}
+    if rel in pins and pins[rel] != digest:
+        raise ValueError(
+            f"refusing to overwrite the existing pin for {rel} "
+            f"({pins[rel]} -> {digest}): if the upstream asset legitimately "
+            f"changed, delete its line from {pin_file} first."
+        )
+    pins[rel] = digest
+    header = ["# sha256 integrity pins - verify with: (cd asset && sha256sum -c SHA256SUMS)\n"]
+    if os.path.isfile(pin_file):
+        with open(pin_file) as f:
+            existing = [ln for ln in f if ln.startswith("#")]
+        if existing:
+            header = existing
+    tmp = pin_file + f".{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
+        f.writelines(header)
+        for r in sorted(pins):
+            f.write(f"{pins[r]}  {r}\n")
+    os.replace(tmp, pin_file)

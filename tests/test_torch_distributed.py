@@ -169,6 +169,10 @@ def _enc_batch(seed: int) -> dict:
     return {k: b[k] for k in ENC_KEYS}
 
 
+# G's eval pass (launch/train_g.evaluate_g): DDPM and the Picard-parallel
+# sampler on a 10-step schedule (window 4, so the parallel sampler slides)
+EVAL = {"samplers": ("ddpm", "parallel"), "T": 10, "window": 4, "seed": 11}
+
 STEPS_BODY = """
 from oakink2_tamf_tpu_torch.core import diffusion as D
 from oakink2_tamf_tpu_torch.core import mano as M
@@ -227,6 +231,27 @@ enc.load_state_dict(inp["enc_sd"])
 state = PT.TrainState(enc, PT.make_optimizer(enc.named_parameters()))
 res["enc"] = record(state, PT.make_encoder_train_step()(state, mine(inp["enc_batch"])))
 
+# G's eval pass on this rank's rows of the G batch, one sampler at a time
+from oakink2_tamf_tpu_torch.launch import train_g
+eval_batch = {k: v for k, v in mine(inp["g_batch"]).items() if k != "t"}
+for sampler in inp["eval"]["samplers"]:
+    model = MDM.InteractionSegmentMDM(MDM.MDMConfig(**inp["g_cfg"]))
+    model.load_state_dict(inp["g_sd"])
+    sample_fn = PT.make_g_sampler(D.tamf_schedule(inp["eval"]["T"]), sampler=sampler,
+                                  parallel_window=inp["eval"]["window"])
+    res["eval_" + sampler] = train_g.evaluate_g(sample_fn, model, mano, assets, LL.ExtraLossConfig(), [eval_batch],
+                                                None, torch.device("cpu"),
+                                                torch.Generator().manual_seed(inp["eval"]["seed"]))
+
+# the parallel sampler's slide on the global batch: a stand-in x0 model
+# whose rows converge at different speeds, rank 1's faster
+k = torch.tensor([3.0, 3.0, 0.5, 0.5])[rows]  # slide_model's k on this rank's rows
+slide_model = lambda x, t: torch.tanh(k.repeat(x.shape[0] // 2)[:, None, None] * x
+                                      + 0.1 * torch.sin(t.to(torch.float32))[:, None, None])
+res["slide"] = D.p_sample_loop_parallel(
+    slide_model, D.tamf_schedule(50), (2, 8, 6), device="cpu", generator=torch.Generator().manual_seed(0),
+    draw=mesh.global_randn, batch_max=mesh.all_reduce_max, window=8, tol=0.1, return_info=True)
+
 # the loader's stripe of 9 samples, and the samplers' shard
 loader = DataLoader([{"i": i} for i in range(9)], batch_size=2, shuffle=True, drop_last=False, seed=3,
                     collate_fn=lambda items: np.array([d["i"] for d in items]), num_workers=1)
@@ -235,6 +260,8 @@ res["stripe"] = [int(i) for b in loader for i in b]
 res["shard"] = common.resolve_shard({})
 res["gathered"] = mesh.all_gather_rows(torch.arange(3) + 10 * RANK)
 res["rows"] = mesh.shard_rows(torch.arange(8))
+res["global_randn"] = mesh.global_randn((2, 3), torch.Generator().manual_seed(1), "cpu")
+res["max"] = mesh.all_reduce_max(torch.tensor([float(RANK), 1.0 - RANK, 5.0]))
 res["metrics"] = mesh.reduce_metrics({"m": torch.tensor(float(RANK)), "s": torch.tensor(RANK + 1.0),
                                       "v": torch.ones(2)}, {"s": "sum"})
 res["batch_means"] = mesh.reduce_batch_means({"m": [float(RANK), RANK + 2.0], "s": [1.0, 3.0]}, sums=["s"])
@@ -256,7 +283,7 @@ def steps(tmp_path_factory):
     shared = tmp_path_factory.mktemp("steps")
     jst = JR.stack_mano_models(JM.synthetic_mano_model("right"), JM.synthetic_mano_model("left"))
     assets = JLL.load_contact_assets()
-    want, inp = {}, {"g_cfg": G_SMALL, "enc_cfg": ENC_SMALL, "g_weights": G_WEIGHTS}
+    want, inp = {}, {"g_cfg": G_SMALL, "enc_cfg": ENC_SMALL, "g_weights": G_WEIGHTS, "eval": EVAL}
 
     # G: the extra loss on, fixed t, JAX's own global noise
     gb = synthetic_batch(np.random.default_rng(3), batch_size=BS, seq_len=8, max_nobj=2, n_obj_points=64,
@@ -382,6 +409,77 @@ def test_in_step_draws_are_rows_of_one_global_draw(steps):
         torch.testing.assert_close(got["per_sample_mse"], one["per_sample_mse"], rtol=1e-5, atol=0)
         torch.testing.assert_close(got["loss"], one["loss"], rtol=1e-5, atol=0)
         torch.testing.assert_close(got["t_mean"], one["t_mean"], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("sampler", EVAL["samplers"])
+def test_two_rank_eval_pass_matches_one_process(steps, sampler):
+    """G's eval pass on two ranks, rank r on global rows [2r, 2r + 2) of
+    the G batch, against one process on the 4 rows in global order with
+    the generator in the same state: each global row gets its own x_T and
+    step noise (this rank's rows of one global draw per step), and the
+    parallel sampler slides on the global batch's drift, so sample_mse and
+    the extra terms agree (rtol 1e-5, the float32 sums of two batches of
+    2 against one of 4)."""
+    from oakink2_tamf_tpu_torch.launch import train_g
+
+    _, res, inp = steps
+    model = MDM.InteractionSegmentMDM(MDM.MDMConfig(**G_SMALL))
+    model.load_state_dict(inp["g_sd"])
+    mano = stack_mano_models(M.synthetic_mano_model("right"), M.synthetic_mano_model("left"), "cpu")
+    batch = {k: torch.from_numpy(np.asarray(v)) for k, v in inp["g_batch"].items() if k != "t"}
+    sample_fn = PT.make_g_sampler(D.tamf_schedule(EVAL["T"]), sampler=sampler, parallel_window=EVAL["window"])
+    want = train_g.evaluate_g(sample_fn, model, mano, LL.load_contact_assets(), LL.ExtraLossConfig(), [batch], None,
+                              torch.device("cpu"), torch.Generator().manual_seed(EVAL["seed"]))
+    assert {"sample_mse", "dist_o", "dist_h"} <= set(want)
+    for r in range(W):
+        got = res[r]["eval_" + sampler]
+        assert set(got) == set(want), r
+        for k, v in want.items():
+            np.testing.assert_allclose(got[k], v, rtol=1e-5, atol=1e-12, err_msg=f"rank {r}: {k}")
+
+
+def slide_model(rows=slice(0, 4)):
+    """The stand-in x0 model of the slide check, on `rows` of the 4:
+    tanh(k x + 0.1 sin t), k = 3 on rows 0-1 and 0.5 on rows 2-3."""
+    k = torch.tensor([3.0, 3.0, 0.5, 0.5])[rows]
+    return lambda x, t: torch.tanh(k.repeat(x.shape[0] // len(k))[:, None, None] * x
+                                   + 0.1 * torch.sin(t.to(torch.float32))[:, None, None])
+
+
+def test_two_rank_parallel_sampler_slides_on_the_global_batch(steps):
+    """The Picard-parallel sampler under a group: each rank's rows of one
+    global draw per timestep, and the window's drift maxed over the ranks
+    (mesh.all_reduce_max), so both ranks take one process's sweeps on the
+    4 rows and their rows of its sample. Rank 1's rows alone would slide
+    faster (its smaller k converges sooner), so without the max the
+    ranks would part."""
+    _, res, _ = steps
+    sched = D.tamf_schedule(50)
+    one, info = D.p_sample_loop_parallel(slide_model(), sched, (4, 8, 6), device="cpu",
+                                         generator=torch.Generator().manual_seed(0), window=8, tol=0.1,
+                                         return_info=True)
+    g = torch.Generator().manual_seed(0)
+    x_t = torch.randn((4, 8, 6), generator=g)
+    t_noise = torch.stack([torch.randn((4, 8, 6), generator=g) for _ in range(50)]).flip(0)  # drawn T-1 .. 0
+    _, alone = D.p_sample_loop_parallel(slide_model(slice(2, 4)), sched, (2, 8, 6), device="cpu", noise=x_t[2:],
+                                        t_noise=t_noise[:, 2:], window=8, tol=0.1, return_info=True)
+    assert alone["n_sweeps"] < info["n_sweeps"]
+    for r in range(W):
+        sample, got = res[r]["slide"]
+        assert got == info, r
+        torch.testing.assert_close(sample, one[2 * r : 2 * r + 2], rtol=0, atol=1e-6)
+
+
+def test_global_randn_is_rows_of_one_draw(steps):
+    """mesh.global_randn: rank r's rows [2r, 2r + 2) of the draw one
+    process makes over 4 rows; all_reduce_max: the ranks' elementwise max."""
+    _, res, _ = steps
+    full = torch.randn((4, 3), generator=torch.Generator().manual_seed(1))
+    for r in range(W):
+        assert torch.equal(res[r]["global_randn"], full[2 * r : 2 * r + 2]), r
+        assert res[r]["max"].tolist() == [1.0, 1.0, 5.0]
+    one = mesh.global_randn((4, 3), torch.Generator().manual_seed(1), "cpu")
+    assert torch.equal(one, full)  # one process: the draw itself, bit for bit
 
 
 def test_loader_stripes_nine_over_two(steps):
