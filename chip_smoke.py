@@ -205,7 +205,23 @@ Phases (any failure exits non-zero and prints no result line):
    cost) and its host enqueue time;
 25. launch/compute_obj_assets.main on the card on 3 box meshes written to
    a temporary dir: 3 clouds equal to mesh_io.sample_surface's and 3
-   finite 768-d embeddings, the first within 1e-4 of the CPU's.
+   finite 768-d embeddings, the first within 1e-4 of the CPU's;
+26. the streaming xla route (core/geometry backend="xla", plain matmuls, no
+   kernel) at 32 frames x 778 x 8192 with a ragged and an all-invalid
+   cloud: point2point_signed with both normals and point2point_h2o
+   (grad_y) under autograd, card against CPU (values rtol 1e-5 or the
+   expansion's rounding, gradients 1e-4 of their norms), no kernel inside
+   it, bitwise the same at a small tile budget; against #6 and #1 on the
+   same operands (squared distances within 1e-6 m^2, equal-index shares);
+   vertex_normals' scatter route on a 10000 x 19602 mesh, card against
+   CPU; the full-width all-pairs R step at h2o_backend xla (1 warm-up and
+   3 timed steps, peak GiB, no kernel launched) beside the all-pairs
+   route's, and its two searches alone; launch/debug_refine at arch_refine
+   widths on 16 segments x 8192 points (#2 launched), launch/debug_sample
+   at arch_mdm_l (2 samples, 1000 DDPM steps), launch/viz_seg and
+   launch/save_cache_dict on the smoke config, each writing its files (the
+   HTML viewers; the PNGs only where matplotlib is installed, else the
+   arrays each figure would draw are checked).
 
 The line before the last is the card's name and power limit
 (nvidia-smi); before it, one JSON line with every kernel's numbers. The
@@ -4616,6 +4632,335 @@ def obj_assets_entry_point() -> None:
           f"(max-abs {scale:.4f}) ({card_line()})", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# The streaming xla route, vertex normals' scatter route, R at
+# h2o_backend xla, the debug and data launchers (phase 26)
+# ---------------------------------------------------------------------------
+
+XLA_FRAMES = 32  # frames of the xla route's checks, one cloud each, 778 x 8192
+DEBUG_SEGMENTS = 16  # debug_refine's synthetic segments on the card
+
+
+def _all_kernels() -> dict:
+    """Every kernel object of the port, by name."""
+    from oakink2_tamf_tpu_torch.ops import chamfer_cluster as CC
+    from oakink2_tamf_tpu_torch.ops import chamfer_cull as CU
+    from oakink2_tamf_tpu_torch.ops import chamfer_h2o_bwd as HB
+    from oakink2_tamf_tpu_torch.ops import chamfer_loss as CL
+    from oakink2_tamf_tpu_torch.ops import chamfer_nn as NN
+    from oakink2_tamf_tpu_torch.ops import chamfer_signed as CS
+
+    ks = (NN.KERNEL, CU.KERNEL, CS.KERNEL, CS.BWD_KERNEL, CL.KERNEL, NN.DVEC_KERNEL, CU.DVEC_KERNEL, HB.KERNEL,
+          *CC.KERNELS, CL.CULL_KERNEL)
+    return {k.name: k for k in ks}
+
+
+def xla_close(got, want, *clouds, same=None) -> str:
+    """'' when got matches want as tests/test_torch_geometry_xla.py holds
+    the xla route: the same +-inf/nan places, the same signs where the two
+    searches chose the same point (`same`, a bool mask; everywhere when
+    None: at a near-tie the card and the CPU may choose different points,
+    whose normals sign differently), and each distance within rtol 1e-5 or
+    its square within 4 float32 ulps of max|x|^2 + max|y|^2 (the uncentred
+    expansion rounds x.y per BLAS); else what differs."""
+    import torch
+
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    fin = torch.isfinite(want)
+    if not (torch.equal(torch.isfinite(got), fin) and torch.equal(torch.isnan(got), torch.isnan(want))
+            and torch.equal(got[torch.isinf(want)].abs(), want[torch.isinf(want)].abs())):
+        return "inf/nan places differ"
+    keep = fin if same is None else fin & same.cpu()
+    if not torch.equal(torch.sign(got[keep]), torch.sign(want[keep])):
+        return "signs differ where the same point was chosen"
+    g, w = got[fin].abs(), want[fin].abs()
+    atol = 4 * torch.finfo(torch.float32).eps * sum(float(c.double().square().sum(-1).max()) for c in clouds)
+    bad = ~(((g - w).abs() <= 1e-5 * w.abs()) | ((g * g - w * w).abs() <= atol))
+    return f"{int(bad.sum())} of {bad.numel()} beyond rtol 1e-5 and {atol:.3g} m^2" if bad.any() else ""
+
+
+def xla_route() -> dict:
+    """The streaming xla route (core/geometry backend="xla") at 32 frames x
+    778 x 8192 with a ragged and an all-invalid cloud (kernel_inputs):
+    point2point_signed with both normals, and point2point_h2o(grad_y=True)
+    under autograd, on the card against the CPU (values as xla_close,
+    gradients within 1e-4 of their norms), no kernel launched inside the
+    route, the search's values bitwise the same at a 16 MiB tile budget;
+    then against #6 (the signed pair) and #1 (the all-pairs h2o search) on
+    the same operands' frames with a valid point: squared distances within
+    1e-6 m^2 (uncentred against pinned arithmetic), the share of equal
+    indices printed; #6 and #1 must launch there. Times of each."""
+    import numpy as np
+    import torch
+
+    from oakink2_tamf_tpu_torch.core import geometry as G
+    from oakink2_tamf_tpu_torch.ops import chamfer_nn as NN
+
+    x, y, yv, _, _ = kernel_inputs(8192, G=XLA_FRAMES, L=1, seed=26)
+    rng = np.random.default_rng(26)
+    xn, yn, w = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).cuda()
+                 for s in (x.shape, y.shape, x.shape[:2]))
+    kernels = _all_kernels()
+
+    def run(dev):
+        a = [t.to(dev) for t in (x, y, yv, xn, yn, w)]
+        signed = G.point2point_signed(a[0], a[1], a[3], a[2], backend="xla", y_normals=a[4])
+        xg, yg = a[0].clone().requires_grad_(True), a[1].clone().requires_grad_(True)
+        d = G.point2point_h2o(xg, yg, a[2], backend="xla")
+        (torch.where(torch.isfinite(d), d, 0.0) * a[5]).sum().backward()
+        return signed, d, xg.grad, yg.grad
+
+    _zero_counts(kernels)
+    (signed, d, gx, gy), ms = cuda_timed(lambda: run("cuda"))
+    counts = {n: k.launches for n, k in kernels.items()}
+    require(not any(counts.values()), f"xla route: kernels launched inside it: {counts}")
+    t0 = time.perf_counter()
+    c_signed, c_d, c_gx, c_gy = run("cpu")
+    cpu_s = time.perf_counter() - t0
+    i_x2y = G.nearest_neighbor(x, y, yv)[1].cpu()
+    same_x2y = i_x2y == G.nearest_neighbor(x.cpu(), y.cpu(), yv.cpu())[1]
+    same_y2x = signed[2].cpu() == c_signed[2]
+    for name, a, b, same in (("y2x", signed[0], c_signed[0], same_y2x), ("x2y", signed[1], c_signed[1], same_x2y),
+                             ("h2o", d, c_d, same_x2y)):
+        err = xla_close(a, b, x, y, same=same)
+        require(not err, f"xla route {name}, card vs CPU: {err}")
+    idx_share = float(same_y2x.double().mean())
+    h2o_share = float(same_x2y.double().mean())
+    # gradients where both chose the same pairs: gx on those rows, gy on the
+    # frames (clouds) whose every row did
+    grads = {}
+    frames = same_x2y.all(1)
+    require(int(frames.sum()) >= XLA_FRAMES // 2, f"xla route: only {int(frames.sum())} frames with every pair the same")
+    for name, a, b in (("gx", gx.cpu()[same_x2y], c_gx[same_x2y]), ("gy", gy.cpu()[frames], c_gy[frames])):
+        gap = float((a.double() - b.double()).norm() / b.double().norm())
+        require(gap <= 1e-4, f"xla route {name}: card vs CPU {gap:.3e} of its norm")
+        grads[name] = gap
+    dead = ~yv.any(1)
+    require(bool(torch.isinf(d[dead]).all()) and bool((signed[0][dead] == 0).all()),
+            "xla route: the all-invalid cloud is not inf (x2y) and 0 (y2x)")
+    small = G.nearest_neighbor(x, y, yv, tile_bytes=1 << 24)
+    full = G.nearest_neighbor(x, y, yv)
+    require(all(torch.equal(a, b) for a, b in zip(small, full)), "xla search: values depend on the tile budget")
+    print(f"xla route ({XLA_FRAMES} x 778 x 8192, ragged and all-invalid clouds): signed with both normals and h2o "
+          f"forward+backward {ms:.3f} ms on the card, {cpu_s:.2f} s on the CPU; values within xla_close, equal "
+          f"indices o2h {idx_share:.6f}, h2o {h2o_share:.6f}; gx {grads['gx']:.2e} (same rows), gy {grads['gy']:.2e} "
+          f"({int(frames.sum())} of {XLA_FRAMES} frames with every pair the same) of their norms; no kernel launched; "
+          f"the same bitwise at a 16 MiB tile ({card_line()})", flush=True)
+
+    # against #6 and #1 on the frames whose cloud has a valid point
+    live = yv.any(1)
+    with torch.no_grad():
+        xla_s, xla_ms = cuda_timed(lambda: G.point2point_signed(x, y, xn, yv, backend="xla"))
+        xla_h, xla_h_ms = cuda_timed(lambda: G.nearest_neighbor(x, y, yv))
+        _zero_counts(kernels)
+        k6, k6_ms = cuda_timed(lambda: G.point2point_signed(x, y, xn, yv))
+        k1, k1_ms = cuda_timed(lambda: NN.h2o_nn(x, y, yv, 1))
+    counts = {n: k.launches for n, k in kernels.items()}
+    require(counts["nn_signed"] >= 1 and counts["h2o_nn"] >= 1, f"xla vs kernels: #6/#1 did not launch: {counts}")
+    gaps, shares = {}, {}
+    for name, a2, b2 in (("x2y vs #6", xla_s[1].square(), k6[1].square()),
+                         ("y2x vs #6", xla_s[0].square(), k6[0].square()), ("h2o vs #1", xla_h[0], k1[0])):
+        gap = float((a2[live].double() - b2[live].double()).abs().max())
+        require(gap <= 1e-6, f"xla route {name}: squared distances differ by {gap:.3e} m^2")
+        gaps[name] = gap
+    shares["o2h"] = float((xla_s[2][live] == k6[2][live]).double().mean())
+    shares["h2o"] = float((xla_h[1][live] == k1[1][live]).double().mean())
+    print(f"xla route against the kernels on {int(live.sum())} live frames: worst squared-distance gap "
+          + ", ".join(f"{k} {v:.3e} m^2" for k, v in gaps.items())
+          + f"; equal indices o2h {shares['o2h']:.6f}, h2o {shares['h2o']:.6f}; signed pair xla {xla_ms:.3f} ms vs "
+          f"#6 {k6_ms:.3f} ms; h2o search xla {xla_h_ms:.3f} ms vs #1 {k1_ms:.3f} ms ({card_line()})", flush=True)
+    return dict(ms=ms, cpu_s=cpu_s, grads=grads, gaps=gaps, index_shares=shares, signed_xla_ms=xla_ms,
+                signed_nn_ms=k6_ms, h2o_xla_ms=xla_h_ms, h2o_nn_ms=k1_ms)
+
+
+def heightfield(n: int, seed: int = 0):
+    """A bumpy n x n grid surface: (verts [n^2, 3] float32, faces
+    [2 (n-1)^2, 3] int32)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    u, v = np.meshgrid(np.linspace(0, 0.2, n), np.linspace(0, 0.2, n), indexing="ij")
+    z = 0.02 * np.sin(30 * u) * np.cos(20 * v) + 0.002 * rng.normal(size=u.shape)
+    verts = np.stack([u, v, z], -1).reshape(-1, 3).astype(np.float32)
+    i = np.arange(n - 1)
+    a = (i[:, None] * n + i[None, :]).reshape(-1)
+    faces = np.concatenate([np.stack([a, a + n, a + 1], 1), np.stack([a + 1, a + n, a + n + 1], 1)])
+    return verts, faces.astype(np.int32)
+
+
+def vertex_normals_scatter() -> dict:
+    """core/geometry.vertex_normals on an object-sized mesh (100 x 100 grid:
+    10000 verts x 19602 faces, V*F above the dense limit: the scatter
+    route) for 8 poses under autograd, card against CPU within 1e-5."""
+    import torch
+
+    from oakink2_tamf_tpu_torch.core import geometry as G
+
+    verts, faces = heightfield(100, seed=26)
+    require(verts.shape[0] * faces.shape[0] > G._VN_DENSE_MAX, "vertex normals: the mesh takes the dense route")
+    vb = torch.from_numpy(verts)[None] * torch.linspace(0.5, 1.5, 8)[:, None, None]
+    vc = vb.cuda().requires_grad_(True)
+    n, ms = cuda_timed(lambda: G.vertex_normals(vc, faces))
+    n.sum().backward()
+    with torch.no_grad():
+        want = G.vertex_normals(vb, faces)
+    err = float((n.detach().cpu() - want).abs().max())
+    require(err <= 1e-5 and bool(torch.isfinite(vc.grad).all()), f"vertex normals scatter route: {err:.3e}")
+    print(f"vertex_normals scatter route (8 x 10000 verts x 19602 faces): {ms:.3f} ms on the card, within "
+          f"{err:.3e} of the CPU; finite gradient ({card_line()})", flush=True)
+    return dict(ms=ms, max_abs_err=err)
+
+
+def r_xla_main_path(all_pairs_step_s: float) -> dict:
+    """R training at full width on h2o_backend "xla" (arch_refine, batch 64
+    x 160 frames x 4 objects x 2048 points, target_h2o cached, sample from
+    the Gaussian-perturb adaptor): one warm-up and 3 timed steps, peak GiB,
+    no kernel launched in the steps; printed beside the all-pairs route's
+    step (phase 11). Then the step's two searches alone on the same batch
+    (the sample hand's verts as operands of both): the sample h2o without
+    gradient and the refined h2o forward+backward."""
+    import torch
+
+    from oakink2_tamf_tpu_torch.models.refine_r import RefineConfig, batch_recover_mano, multi_object_h2o_dist
+
+    label = f"R main path (xla route, {R_ALL_PAIRS_P} points)"
+    dev = torch.device("cuda")
+    state, step, mano, _ = _r_training(dev, RefineConfig(), "xla")
+    db, _ = _r_batch(TRAIN_BS, TRAIN_L, TRAIN_NOBJ, R_ALL_PAIRS_P, 11, mano, dev)
+    t0 = time.perf_counter()
+    step(state, db)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    kernels = _all_kernels()
+    before = [p.detach().clone() for p in state.model.parameters()]
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(kernels)
+    times, losses = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        m = step(state, db)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    counts = {n: k.launches for n, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_s = sum(times) / len(times)
+    require(not any(counts.values()), f"{label}: kernels launched: {counts}")
+    require(all(v == v and abs(v) < float("inf") for v in losses), f"{label}: non-finite training loss")
+    require(any(not torch.equal(a, b) for a, b in zip(before, state.model.parameters())),
+            f"{label}: parameters unchanged")
+    print(f"{label}: warm-up {warm:.3f} s; steps {[round(t, 4) for t in times]} s, mean {step_s:.4f} s = "
+          f"{TRAIN_BS / step_s:.3f} samples/s (the all-pairs route's step {all_pairs_step_s:.4f} s: "
+          f"{step_s / all_pairs_step_s:.2f}x); losses {losses}; peak memory {peak:.2f} GiB; no kernel launched "
+          f"({card_line()})", flush=True)
+    del before
+
+    mask = db["mask"]
+    with torch.no_grad():
+        verts = batch_recover_mano(mano, db["sample_pose_repr"], db["shape"], db["hand_side"])[0]
+
+    def h2o(v):
+        return multi_object_h2o_dist(v, db["obj_traj"], db["obj_points"], db["obj_mask"], frame_mask=mask,
+                                     backend="xla")
+
+    def sample_h2o():
+        with torch.no_grad():
+            h2o(verts)
+
+    def refined_h2o():
+        (h2o(verts.clone().requires_grad_(True)) * mask[:, :, None]).sum().backward()
+
+    split = {"sample h2o (no grad)": cuda_time_ms(sample_h2o, reps=2),
+             "refined h2o forward+backward": cuda_time_ms(refined_h2o, reps=2)}
+    print(f"R step split (xla route, {R_ALL_PAIRS_P} points) (ms, each alone on the same batch): "
+          + "; ".join(f"{k} {v:.3f}" for k, v in split.items()), flush=True)
+    del state, db, verts
+    torch.cuda.empty_cache()
+    return dict(step_s=step_s, times=times, peak_gib=peak, all_pairs_step_s=all_pairs_step_s, split_ms=split)
+
+
+def debug_launchers() -> dict:
+    """The debug and data launchers on the card, each writing into a
+    temporary dir: launch/debug_refine at arch_refine widths on 16 synthetic
+    segments collated at 4 slots x 8192 points (#2 must launch: the culled
+    route of the sample, refined and target h2o), launch/debug_sample at
+    arch_mdm_l on 2 samples with the 1000-step DDPM chain, launch/viz_seg
+    and launch/save_cache_dict on the smoke config; wall seconds each. The
+    three renderers run with --html true: the HTML viewers (numpy only) are
+    written as they are; where matplotlib is not installed (the card's
+    machine has none) the PNG figures are not drawn: the arrays handed to
+    each figure are recorded instead and must be finite."""
+    import importlib.util
+    import tempfile
+    from contextlib import ExitStack
+    from unittest import mock
+
+    import numpy as np
+
+    from oakink2_tamf_tpu_torch.launch import debug_refine, debug_sample, save_cache_dict, viz_seg
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = lambda name: os.path.join(root, "config", name)  # noqa: E731
+    kernels = _all_kernels()
+    drawn = importlib.util.find_spec("matplotlib") is not None
+    figures = []
+
+    def record(*arrays, **kw):
+        arrs = [np.asarray(a) for a in (*arrays, *kw.values()) if a is not None and not isinstance(a, str)]
+        require(all(np.isfinite(a).all() for a in arrs if a.dtype.kind == "f"), "a launcher's figure: non-finite")
+        figures.append([a.shape for a in arrs])
+
+    walls = {}
+    with tempfile.TemporaryDirectory(prefix="tamf_debug_") as tmp, ExitStack() as stack:
+        if not drawn:
+            for mod, name in ((debug_refine, "render_sequence_grid"), (debug_sample, "render_sequence_grid"),
+                              (viz_seg, "render_sequence_grid")):
+                stack.enter_context(mock.patch.object(mod, name, record))
+            stack.enter_context(mock.patch.object(debug_refine, "_overlay", lambda figs, path: None))
+            stack.enter_context(mock.patch.object(debug_refine, "render_h2o_strip",
+                                                  lambda h2o, path: record(*h2o.values())))
+        out = os.path.join(tmp, "refine")
+        _zero_counts(kernels)
+        t0 = time.perf_counter()
+        res = debug_refine.main(["--cfg", cfg("arch_refine.yml"), "--data.synthetic", "true",
+                                 "--data.synthetic_size", str(DEBUG_SEGMENTS), "--data.n_obj_points", "8192",
+                                 "--n_samples", str(DEBUG_SEGMENTS), "--html", "true", "--out", out])
+        walls["debug_refine"] = time.perf_counter() - t0
+        counts = {n: k.launches for n, k in kernels.items() if k.launches}
+        require(counts.get("h2o_cull", 0) >= 1, f"debug_refine: #2 did not launch: {counts}")
+        require(res["refine_h2o_dist"].shape == (DEBUG_SEGMENTS, 160, 778) and np.isfinite(res["refine_h2o_dist"]).all(),
+                "debug_refine: refined h2o")
+        want = {f"refine_{i:03d}{e}" for i in range(DEBUG_SEGMENTS) for e in (".html",) + (("_h2o.png", "_overlay.png") if drawn
+                                                                                else ())}
+        require(set(os.listdir(out)) == want, f"debug_refine: files {sorted(os.listdir(out))[:4]}...")
+
+        out = os.path.join(tmp, "sample")
+        t0 = time.perf_counter()
+        pred = debug_sample.main(["--cfg", cfg("arch_mdm_l.yml"), "--data.synthetic", "true", "--html", "true",
+                                  "--out", out])
+        walls["debug_sample"] = time.perf_counter() - t0
+        require(tuple(pred.shape) == (2, 160, 99) and bool(pred.isfinite().all()), "debug_sample: the sample")
+        want = {f"sample_{i:03d}.{e}" for i in range(2) for e in ("html",) + (("png",) if drawn else ())}
+        require(set(os.listdir(out)) == want, f"debug_sample: files {sorted(os.listdir(out))}")
+
+        out = os.path.join(tmp, "viz")
+        t0 = time.perf_counter()
+        got = viz_seg.main(["--cfg", cfg("synthetic_smoke.yml"), "--indices", "0,1", "--html", "true", "--out", out])
+        walls["viz_seg"] = time.perf_counter() - t0
+        want = {f"seg_{i:04d}.{e}" for i in range(2) for e in ("html",) + (("png",) if drawn else ())}
+        require(len(got) == 2 and set(os.listdir(out)) == want, f"viz_seg: files {sorted(os.listdir(out))}")
+
+        pkl = os.path.join(tmp, "cache", "cache_dict.pkl")
+        t0 = time.perf_counter()
+        n = save_cache_dict.main(["--cfg", cfg("synthetic_smoke.yml"), "--out", pkl, "--commit"])
+        walls["save_cache_dict"] = time.perf_counter() - t0
+        require(n == 16 and os.path.exists(pkl), "save_cache_dict: the pickle")
+    how = "PNGs drawn" if drawn else f"matplotlib absent: {len(figures)} figures' arrays recorded, not drawn"
+    print("debug and data launchers on the card (wall s): " + ", ".join(f"{k} {v:.2f}" for k, v in walls.items())
+          + f"; HTML viewers written, {how}; debug_refine's launches {counts} ({card_line()})", flush=True)
+    return dict(walls=walls, debug_refine_launches=counts, png_drawn=drawn)
+
+
 def main() -> int:
     import torch
 
@@ -4737,7 +5082,7 @@ def main() -> int:
     _, r_counts, _ = r_train_main_path()
     torch.cuda.empty_cache()
     phase("R training main path (all-pairs route)")
-    _, r_ap_counts, _ = r_train_main_path("all-pairs")
+    _, r_ap_counts, r_ap_step_s = r_train_main_path("all-pairs")
     torch.cuda.empty_cache()
     phase("R training at bf16, all-pairs route")
     r_option_main_path()
@@ -4782,6 +5127,10 @@ def main() -> int:
     print("pointbert: " + json.dumps(pb_stats), flush=True)
     phase("compute_obj_assets entry point")
     obj_assets_entry_point()
+    phase("xla route, vertex normals' scatter route, R at h2o_backend xla, debug and data launchers")
+    xla_stats = {"route": xla_route(), "vertex_normals": vertex_normals_scatter(),
+                 "r_step": r_xla_main_path(r_ap_step_s), "launchers": debug_launchers()}
+    print("xla: " + json.dumps(xla_stats), flush=True)
     # each kernel's count from the paths that run it: serving for #1/#2 (#1
     # also in sample_r and in compute_score's CR on its output and on the
     # real-format data, #2 also in the full-width G->R chain), the fused G

@@ -1,6 +1,5 @@
 """Geometry: vertex normals, hand->object nearest distances and signed
-hand/object distances (port of oakink2_tamf_tpu/core/geometry.py, the parts
-the serving path and G training run).
+hand/object distances (port of oakink2_tamf_tpu/core/geometry.py).
 
 `point2point_h2o` routes like the JAX package does on the TPU: the
 bounds-culled kernel (ops/chamfer_cull.py) when P2 >= CULL_MIN_P2 and
@@ -18,12 +17,13 @@ their plain versions.
 Both take `backend="cluster"`, the cluster-pruned opt-in route
 (ops/chamfer_cluster.py: kernels #10-#13), exact where its certificate
 (`point2point_h2o_overflow`, ops/chamfer_cluster.signed_cluster_overflow)
-is zero. The JAX package's "xla" scan is not ported as a backend.
+is zero, and `backend="xla"`, the JAX package's streaming scan
+(`nearest_neighbor`): y in tiles of `chunk` points, batched matmuls, no
+kernel of ops/. It is the only route that signs x2y by `y_normals`, and
+"auto" takes it whenever they are given.
 
 `min_cdist`, the Contact Ratio's distance core, runs the all-pairs kernel
 (#1) on CUDA tensors and its plain version on CPU tensors.
-`nearest_neighbor` is the JAX package's chunked search, kept as the parity
-target of that function.
 """
 
 from __future__ import annotations
@@ -47,6 +47,8 @@ def _clamp_tile(chunk: int, p2: int) -> int:
 # dense {0, +-1} corner-difference and incidence operators per (faces, V,
 # device): D1/D2 [F, V] map verts to the two edge vectors, A [V, F] sums
 # face normals into vertices. Bounded: one entry per hand side and device.
+# Meshes with V*F above _VN_DENSE_MAX take the scatter route instead.
+_VN_DENSE_MAX = 8_000_000
 _VN_OPS_CACHE: dict[tuple, tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = {}
 
 
@@ -85,11 +87,25 @@ def _apply_vertex_op(op: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 def vertex_normals(verts: torch.Tensor, faces: np.ndarray) -> torch.Tensor:
     """Area-weighted per-vertex normals, normalized. verts [..., V, 3], faces
-    [F, 3] host ints -> [..., V, 3]. Dense-operator path (MANO-sized meshes)."""
-    d1, d2, a = _vn_dense_ops(np.asarray(faces), verts.shape[-2], verts.device)
-    e1 = _apply_vertex_op(d1, verts)
-    e2 = _apply_vertex_op(d2, verts)
-    acc = _apply_vertex_op(a, torch.linalg.cross(e1, e2, dim=-1))
+    [F, 3] host ints -> [..., V, 3]. Up to V*F = _VN_DENSE_MAX (MANO is
+    778 x 1538) the corner differences and the face->vertex sum are dense
+    {0, +-1} operators applied as matmuls; above it (object meshes, whose
+    operators would take V*F*12 bytes) corner gathers and three index_add
+    over the faces' corners, as the JAX package's scatter path."""
+    faces = np.asarray(faces)
+    num_v = verts.shape[-2]
+    if num_v * faces.shape[0] > _VN_DENSE_MAX:
+        f = torch.as_tensor(faces, dtype=torch.long, device=verts.device)
+        v0, v1, v2 = (verts.index_select(-2, f[:, i]) for i in range(3))
+        fn = torch.linalg.cross(v1 - v0, v2 - v0, dim=-1)  # [..., F, 3]
+        acc = torch.zeros_like(verts)
+        for i in range(3):
+            acc = acc.index_add(-2, f[:, i], fn)
+    else:
+        d1, d2, a = _vn_dense_ops(faces, num_v, verts.device)
+        e1 = _apply_vertex_op(d1, verts)
+        e2 = _apply_vertex_op(d2, verts)
+        acc = _apply_vertex_op(a, torch.linalg.cross(e1, e2, dim=-1))
     n2 = torch.sum(acc * acc, dim=-1, keepdim=True)
     return acc * torch.rsqrt(torch.clamp_min(n2, 1e-24))
 
@@ -162,6 +178,7 @@ def point2point_h2o(
     grad_y: bool = True,
     y_group: int = 1,
     x_valid: torch.Tensor | None = None,
+    chunk: int = 2048,
 ) -> torch.Tensor:
     """Unsigned x->y nearest distances [N, P1], differentiable in x (and in
     y when grad_y, which requires y_group == 1).
@@ -172,25 +189,22 @@ def point2point_h2o(
     all-pairs route; "cluster" is the cluster-pruned opt-in (`k_cells`
     candidate cells per 128-row tile, ops/chamfer_cluster.K_CELLS_DEFAULT
     by default): exact only where `point2point_h2o_overflow` is zero, and
-    never below the exact value. The JAX package's "xla" scan is not ported
-    (ROADMAP.md).
+    never below the exact value; "xla" is the streaming scan (`chunk` points
+    of y per tile, no kernel), differentiable in y too when grad_y.
 
     `x_valid` [N] is a culling hint for the culled route: False frames come
     out BIG there (callers must replace them) and are searched on the other
-    routes. `x_perm` (core/mano.hand_template_perm) reorders the rows before
+    routes. On the xla route an all-invalid cloud gives +inf. `x_perm` (core/mano.hand_template_perm) reorders the rows before
     the culled and cluster routes so their 128-row tiles are compact;
     distances map back through the inverse permutation (on the culled route
     both gathers stay in the autograd graph; the cluster route un-permutes
     inside its autograd.Function)."""
-    if backend == "xla":
-        raise NotImplementedError(
-            "point2point_h2o backend='xla' is not ported (the JAX package's XLA scan; "
-            "ROADMAP.md): use 'auto', 'cull', 'exact' or 'cluster'"
-        )
-    if backend not in ("auto", "cull", "exact", "pallas", "cluster"):
+    if backend not in ("auto", "cull", "exact", "pallas", "cluster", "xla"):
         raise ValueError(f"unknown point2point_h2o backend {backend!r}")
     if y_group > 1 and grad_y:
         raise NotImplementedError("y_group > 1 requires grad_y=False")
+    if backend == "xla":
+        return _h2o_xla(x, y if grad_y else y.detach(), y_valid, y_group, chunk)
     if backend == "cluster":
         kw = {} if k_cells is None else {"k_cells": k_cells}
         return chamfer_cluster.point2point_h2o_cluster(
@@ -240,7 +254,8 @@ def point2point_signed(
     k_tiles: int | None = None,
     grad_y: bool = True,
     y_group: int = 1,
-    y_normals: torch.Tensor | None = None,
+    y_normals: torch.Tensor | None = None,  # [N, P2, 3]
+    chunk: int = 2048,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Signed distances between two point clouds (the reference's
     model/loss/chamfer_distance.py:point2point_signed).
@@ -259,23 +274,23 @@ def point2point_signed(
     "cluster" the cluster-pruned opt-in (ops/chamfer_cluster.py; `k_cells`
     candidate cells per hand tile, `k_tiles` candidate tiles per object
     cell, 0 = all), exact where ops/chamfer_cluster.signed_cluster_overflow
-    is zero, one cloud per frame (no y_group). `y_normals` (signing x2y) is
-    refused, as the JAX package's kernel routes refuse it; "xla" is not
-    ported."""
-    if y_normals is not None:
+    is zero, one cloud per frame (no y_group); "xla" the streaming scan
+    (`chunk` points per tile, no kernel). `y_normals` sign x2y by the
+    normal of each hand vert's nearest object point: "auto" then takes the
+    xla route, and "pallas" and "cluster" refuse them, as in the JAX
+    package. On the xla route an all-invalid cloud gives x2y = +inf (signed
+    against its point 0 with y_normals) and padded frames are searched."""
+    if backend in ("pallas", "cluster") and y_normals is not None:
         raise ValueError(
-            "point2point_signed: y_normals are not supported (no TaMF call site passes them; "
-            "the JAX package signs x2y only on its XLA route)"
+            f"backend={backend!r} does not support y_normals (no TaMF call site passes them); "
+            "use backend='auto'/'xla'"
         )
-    if backend == "xla":
-        raise NotImplementedError(
-            "point2point_signed backend='xla' is not ported (the JAX package's XLA scan; "
-            "ROADMAP.md): use 'auto' or 'cluster'"
-        )
-    if backend not in ("auto", "pallas", "cluster"):
+    if backend not in ("auto", "pallas", "cluster", "xla"):
         raise ValueError(f"unknown point2point_signed backend {backend!r}")
     if y_group > 1 and grad_y:
         raise NotImplementedError("y_group > 1 requires grad_y=False")
+    if backend == "xla" or (backend == "auto" and y_normals is not None):
+        return _signed_xla(x, y if grad_y else y.detach(), x_normals, y_normals, y_valid, y_group, chunk)
     if backend == "cluster":
         if y_group > 1:
             raise NotImplementedError("backend='cluster' has no y_group support")
@@ -288,27 +303,127 @@ def point2point_signed(
     )
 
 
+# the xla route's distance tiles: one [clouds, rows, chunk] float32 tile
+# stays near this size, whatever the batch
+XLA_TILE_BYTES = 1 << 30
+
+
 def nearest_neighbor(
-    x: torch.Tensor, y: torch.Tensor, y_valid: torch.Tensor | None = None, chunk: int = 2048
+    x: torch.Tensor,  # [N, P1, 3] or [P1, 3]
+    y: torch.Tensor,  # [N // y_group, P2, 3] or [P2, 3]
+    y_valid: torch.Tensor | None = None,  # [N // y_group, P2] or [P2] bool
+    chunk: int = 2048,
+    *,
+    y_group: int = 1,
+    tile_bytes: int = XLA_TILE_BYTES,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """For each point of x [P1, 3], the (squared distance, index int32) of
-    its nearest point of y [P2, 3] (JAX core/geometry.py:129): y in tiles
-    of `chunk` points with a running minimum; squared distances in the
-    expanded form max(|x|^2 + |y|^2 - 2 x.y, 0); y_valid [P2] masks points
-    to inf. Within a tile the first minimum wins, across tiles the earlier."""
-    x2 = torch.sum(x * x, dim=-1, keepdim=True)  # [P1, 1]
-    best_d = torch.full((x.shape[0],), torch.inf, dtype=x.dtype, device=x.device)
-    best_i = torch.zeros((x.shape[0],), dtype=torch.int32, device=x.device)
-    for j0 in range(0, y.shape[0], chunk):
-        yc = y[j0 : j0 + chunk]
-        d = torch.clamp_min(x2 + torch.sum(yc * yc, dim=-1)[None, :] - 2.0 * (x @ yc.T), 0.0)
+    """For each point of x, the (squared distance, index int32) of its
+    nearest point in y; frame f searches cloud f // y_group (JAX
+    core/geometry.py:129, vmapped). y is streamed in tiles of `chunk` points
+    with a running minimum; squared distances in the expanded form
+    max(|x|^2 + |y|^2 - 2 x.y, 0) (one batched matmul per tile); y_valid
+    masks points to inf, so an all-invalid cloud gives (inf, 0). Within a
+    tile the first minimum wins, across tiles the earlier. The frames of a
+    cloud share it (no copy), and clouds and rows go in groups whose
+    [clouds, rows, chunk] tile stays within `tile_bytes` (or 128 rows): the
+    values do not depend on the grouping. No gradient: the xla route
+    attaches it to the chosen pairs (_pair_dist)."""
+    if x.ndim == 2:
+        d, i = nearest_neighbor(x[None], y[None], None if y_valid is None else y_valid[None], chunk,
+                                tile_bytes=tile_bytes)
+        return d[0], i[0]
+    F, P1, _ = x.shape
+    G, P2, _ = y.shape
+    if F != G * y_group:
+        raise ValueError(f"{F} frames against {G} clouds with y_group {y_group}")
+    chunk = max(1, min(chunk, P2))
+    M = y_group * P1
+    with torch.no_grad():
+        xg = x.reshape(G, M, 3)
+        x2 = torch.sum(xg * xg, dim=-1, keepdim=True)  # [G, M, 1]
+        y2 = torch.sum(y * y, dim=-1)  # [G, P2]
         if y_valid is not None:
-            d = torch.where(y_valid[None, j0 : j0 + chunk], d, torch.inf)
-        dmin, i = torch.min(d, dim=1)
-        upd = dmin < best_d
-        best_d = torch.where(upd, dmin, best_d)
-        best_i = torch.where(upd, i.to(torch.int32) + j0, best_i)
-    return best_d, best_i
+            y2 = y2.masked_fill(~y_valid.bool(), torch.inf)  # the tile's entry is then inf
+        yT = y.transpose(1, 2)  # [G, 3, P2]
+        # rows per tile: at least 128, since BLAS rounds a product of one or
+        # two rows otherwise than a taller one
+        rows = max(128, tile_bytes // (4 * chunk))
+        rb = min(M, rows)
+        gb = max(1, rows // M)
+        best_d = torch.full((G, M), torch.inf, dtype=x.dtype, device=x.device)
+        best_i = torch.zeros((G, M), dtype=torch.int64, device=x.device)
+        for g0 in range(0, G, gb):
+            for r0 in range(0, M, rb):
+                xs, x2s = xg[g0 : g0 + gb, r0 : r0 + rb], x2[g0 : g0 + gb, r0 : r0 + rb]
+                bd, bi = best_d[g0 : g0 + gb, r0 : r0 + rb], best_i[g0 : g0 + gb, r0 : r0 + rb]
+                for j0 in range(0, P2, chunk):
+                    base = x2s + y2[g0 : g0 + gb, None, j0 : j0 + chunk]
+                    d = torch.baddbmm(base, xs, yT[g0 : g0 + gb, :, j0 : j0 + chunk], alpha=-2.0)
+                    dmin, i = torch.min(d.clamp_min_(0.0), dim=-1)
+                    upd = dmin < bd
+                    bd.copy_(torch.where(upd, dmin, bd))
+                    bi.copy_(torch.where(upd, i + j0, bi))
+    return best_d.reshape(F, P1), best_i.reshape(F, P1).to(torch.int32)
+
+
+def _pair_dist(d2: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sqrt(d2) [...] valued exactly as _sqrt_positive_part(d2), the squared
+    distance of the pair (a, b) [..., 3] that the search chose, with the
+    gradient of the JAX route's expanded distance there: (a - b) / dist
+    into a and its negative into b (b is a gather, so its gradient
+    scatters into the cloud), none where dist is 0 or inf. The search's
+    tiles are not kept: the gradient needs only the pair."""
+    dist = T._sqrt_positive_part(d2)
+    if not (torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)):
+        return dist
+    diff = a - b
+    coef = torch.where(dist > 0, dist.reciprocal(), 0.0)  # 0 at inf too
+    lin = torch.sum(diff * (diff.detach() * coef[..., None]), dim=-1)
+    return dist + (lin - lin.detach())
+
+
+def _cloud_rows(idx: torch.Tensor, y_group: int, P2: int) -> torch.Tensor:
+    """Per-frame point indices [F, P] -> rows of the flattened clouds
+    [(F // y_group) * P2]."""
+    cloud = torch.arange(idx.shape[0], device=idx.device) // y_group
+    return cloud[:, None] * P2 + idx.long()
+
+
+def _h2o_xla(x, y, y_valid, y_group: int, chunk: int) -> torch.Tensor:
+    """x->y distances [F, P1] on the xla route (JAX `_point2point_signed_xla`'s
+    x2y, geometry.py:446-477)."""
+    d2, idx = nearest_neighbor(x, y, y_valid, chunk, y_group=y_group)
+    y_near = y.reshape(-1, 3)[_cloud_rows(idx, y_group, y.shape[1])]
+    return _pair_dist(d2, x, y_near)
+
+
+def _signed_xla(x, y, x_normals, y_normals, y_valid, y_group: int, chunk: int):
+    """(y2x_signed [F, P2], x2y_signed [F, P1], yidx_near [F, P2]) on the xla
+    route (JAX `_point2point_signed_xla`): each direction's search, the
+    distance of its chosen pair, signed by sign(normal . offset) of the
+    nearest point (sign(0) = 0); y2x is 0 at invalid y points, whose
+    yidx_near is still the real nearest index. Frame f's cloud is f //
+    y_group: the x2y search shares it, the y2x search queries a per-frame
+    copy of its points."""
+    F, P1, _ = x.shape
+    P2 = y.shape[1]
+    d_x2y, i_x2y = nearest_neighbor(x, y, y_valid, chunk, y_group=y_group)
+    x_near = y.reshape(-1, 3)[_cloud_rows(i_x2y, y_group, P2)]  # nearest y of each x
+    yf = y if y_group == 1 else y.repeat_interleave(y_group, dim=0)  # [F, P2, 3]
+    d_y2x, i_y2x = nearest_neighbor(yf, x, None, chunk)
+    y_near = x.reshape(-1, 3)[_cloud_rows(i_y2x, 1, P1)]  # nearest x of each y
+    x2y = _pair_dist(d_x2y, x, x_near)
+    y2x = _pair_dist(d_y2x, yf, y_near)
+    if x_normals is not None:
+        nn = x_normals.reshape(-1, 3)[_cloud_rows(i_y2x, 1, P1)]
+        y2x = y2x * torch.sign(torch.sum(nn * (yf - y_near), dim=-1)).detach()
+    if y_normals is not None:
+        nn = y_normals.reshape(-1, 3)[_cloud_rows(i_x2y, 1, P2)]
+        x2y = x2y * torch.sign(torch.sum(nn * (x - x_near), dim=-1)).detach()
+    if y_valid is not None:
+        yv = y_valid.bool() if y_group == 1 else y_valid.bool().repeat_interleave(y_group, dim=0)
+        y2x = torch.where(yv, y2x, 0.0)
+    return y2x, x2y, i_y2x
 
 
 def min_cdist(hv: torch.Tensor, pc: torch.Tensor) -> torch.Tensor:

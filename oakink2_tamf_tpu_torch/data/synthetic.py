@@ -1,5 +1,6 @@
 """Synthetic interaction segments (port of oakink2_tamf_tpu/data/synthetic.py
-`synthetic_batch` and launch/common.py `SyntheticSegments`), in numpy.
+`synthetic_batch` and `with_perturbed_sample`, and launch/common.py
+`SyntheticSegments`), in numpy.
 
 The same numpy calls as the JAX package, so the same seed gives the same
 arrays. Shapes follow the static batch contract: pose_repr [bs, L, 99] with
@@ -13,6 +14,9 @@ from typing import Any
 
 import numpy as np
 
+import torch
+
+from ..core.transforms import renormalize_pose_repr_rot6d
 from ..utils.pc_util import spatial_sort_indices
 from .adaptors import ACTION_LIST, NUM_ACTIONS
 
@@ -73,6 +77,25 @@ def synthetic_batch(
         "obj_points": obj_points,
         "action_label_id": rng.integers(0, 70, size=(bs,)).astype(np.int32),
     }
+
+
+def with_perturbed_sample(batch: dict, rng: np.random.Generator, sigma_range=(0.02, 0.1)) -> dict:
+    """The batch with `sample_pose_repr`, a Gaussian perturbation of
+    pose_repr (JAX data/synthetic.py:105; the reference's
+    GuassianPerturbSampleAdaptor, dataset/pose_repr_sample.py:55-94): one
+    sigma per batch, translation noise at 0.1 sigma, rot6d noise at sigma,
+    the rot6d blocks renormalized. Padded frames (mask 0) stay exactly zero,
+    as the reference perturbs segments at their true length and zero-pads
+    at collate. The same numpy draws in the same order as the JAX package."""
+    pr = np.asarray(batch["pose_repr"])
+    sigma = rng.uniform(*sigma_range)
+    noisy = pr.copy()
+    noisy[..., 0:3] += rng.normal(scale=0.1 * sigma, size=pr[..., 0:3].shape)
+    noisy[..., 3:] += rng.normal(scale=sigma, size=pr[..., 3:].shape)
+    sp = renormalize_pose_repr_rot6d(torch.from_numpy(noisy)).numpy()
+    out = dict(batch)
+    out["sample_pose_repr"] = sp * (np.asarray(batch["mask"]) > 0)[:, :, None]
+    return out
 
 
 # a box mesh per object, so mesh-consuming paths (the SIV metric) run

@@ -3,8 +3,8 @@ oakink2_tamf_tpu/launch/param.py, plus `runtime.device`,
 `runtime.dist_backend`, the `fused_cull` choice of `train.dist_impl` and
 train_g's `runtime.profile_dir`; mirrors
 reference launch/param/{base,mano,model,loss,loss_refine}.py — the schema,
-not the code). The same YAMLs drive both packages; entries about the TPU (chunk,
-h2o_backend) are accepted and documented where the port reads them."""
+not the code). The same YAMLs drive both packages; entries about the TPU
+are accepted and documented where the port reads them."""
 
 from __future__ import annotations
 
@@ -86,7 +86,8 @@ def reg_train_param(reg: ConfigRegistry, default_epochs: int = 400) -> None:
     reg.register("schedule_sampler", prefix="train", category=str, default="uniform",
                  choices=["uniform", "loss-second-moment"])
     reg.register("chunk", prefix="train", category=int, default=2048,
-                 desc="object points per tile of the fused_cull route's region-cull mask")
+                 desc="object points per tile of the fused_cull route's region-cull mask and of "
+                      "the xla h2o route's search")
     reg.register("dist_impl", prefix="train", category=str, default="auto",
                  choices=["auto", "fused", "composed", "fused_cull"],
                  desc="G dist_h/dist_o route: fused (= auto) = single-pass loss kernel "
@@ -96,12 +97,13 @@ def reg_train_param(reg: ConfigRegistry, default_epochs: int = 400) -> None:
     reg.register("h2o_backend", prefix="train", category=str, default="auto",
                  choices=["auto", "cull", "exact", "pallas", "cluster", "xla"],
                  desc="h2o NN route: auto = exact kernels (the bounds-culled "
-                      "exact kernel at production cloud sizes on TPU — "
-                      "bit-identical values, triangle-inequality skip); cull "
-                      "forces it; cluster = the pruned kernel OPT-IN "
+                      "exact kernel at 4096+ object points, the all-pairs one "
+                      "below); cull forces the culled one, exact/pallas the "
+                      "all-pairs one; cluster = the pruned kernel OPT-IN "
                       "(monitored by the val-epoch exactness certificate — "
                       "only sound when its candidate budget covers the "
-                      "cloud's cells)")
+                      "cloud's cells); xla = the streaming scan in plain "
+                      "matmuls, train.chunk points per tile, no kernel")
     reg.register("eval_max_batches", prefix="train", category=int, default=0,
                  desc="val/test batches per eval pass; 0 = the FULL split "
                       "(reference parity, launch/train.py:577-656)")

@@ -20,8 +20,9 @@ and rank 0 logs the global means.
 
 The YAMLs are the JAX package's. The device is `runtime.device` ("cuda" by
 default; without a GPU the run raises unless told "cpu"); `train.h2o_backend`
-routes the h2o searches ("auto", "cull", "exact", or the cluster-pruned
-opt-in "cluster"; "xla" raises). Each val/test pass runs the JAX launcher's
+routes the h2o searches ("auto", "cull", "exact", the cluster-pruned opt-in
+"cluster", or "xla", the streaming scan in plain matmuls with
+`train.chunk` object points per tile, no kernel). Each val/test pass runs the JAX launcher's
 cluster-exactness certificate on its first batch (`make_overflow_probe`,
 `report_cluster_overflow`): INFO when the sample hand's cluster search was
 provably exact (always so off the cluster route), WARNING with the count of
@@ -118,11 +119,11 @@ def build_r_train_dataset(reg, mano_stack=None):
     return ds, cache
 
 
-def refine_forward_eval(net, mano_stack, batch, backend: str = "auto"):
+def refine_forward_eval(net, mano_stack, batch, backend: str = "auto", chunk: int = 2048):
     """R's deterministic forward with the target branch: dropout off
     (net.eval()), mask-padded frames culled as in training."""
     net.eval()
-    return refine_forward(net, mano_stack, batch, backend=backend, loss_frame_mask=batch["mask"])
+    return refine_forward(net, mano_stack, batch, backend=backend, loss_frame_mask=batch["mask"], chunk=chunk)
 
 
 def make_overflow_probe(mano_stack, *, backend: str = "auto"):
@@ -164,7 +165,7 @@ def report_cluster_overflow(ovf_fn, batch, split: str, epoch_id: int, writer, st
 
 @torch.no_grad()
 def evaluate_r(net, mano_stack, assets, loss_cfg, loader, device, backend: str = "auto",
-               max_batches: int = 0, on_first_batch=None) -> dict[str, float]:
+               max_batches: int = 0, on_first_batch=None, chunk: int = 2048) -> dict[str, float]:
     """val/test pass (reference train_refine.py val passes): the refine loss
     and its terms of the deterministic forward, meaned over the batches of
     the global batch (every rank runs its stripe: mesh.reduce_batch_means);
@@ -178,7 +179,7 @@ def evaluate_r(net, mano_stack, assets, loss_cfg, loader, device, backend: str =
         db = common.device_batch(batch, device)
         if n == 0 and on_first_batch is not None:
             on_first_batch(db)
-        _, terms = LL.segment_refine_loss(assets, loss_cfg, refine_forward_eval(net, mano_stack, db, backend), db)
+        _, terms = LL.segment_refine_loss(assets, loss_cfg, refine_forward_eval(net, mano_stack, db, backend, chunk), db)
         for k, v in terms.items():
             acc.setdefault(k, []).append(float(v))
     net.train(was_training)
@@ -203,6 +204,7 @@ def main(argv=None) -> PT.TrainState:
     device = common.run_device(reg)
     seed = int(runtime.get("seed", 0))
     backend = str(train_cfg.get("h2o_backend", "auto"))
+    chunk = int(train_cfg.get("chunk", 2048))
     W, coordinator = mesh.world_size(), mesh.is_coordinator()
     _logger.info("device: %s", device)
 
@@ -244,7 +246,7 @@ def main(argv=None) -> PT.TrainState:
         load_checkpoint(train_cfg["reload_ckpt_model_filepath"], state, strict=False)
         _logger.info("reloaded ckpt from %s at step %d", train_cfg["reload_ckpt_model_filepath"], state.step)
 
-    step_fn = PT.make_r_train_step(mano_stack, assets, loss_cfg, backend=backend)
+    step_fn = PT.make_r_train_step(mano_stack, assets, loss_cfg, backend=backend, chunk=chunk)
     ovf_fn = make_overflow_probe(mano_stack, backend=backend)
     writer = common.metric_writer(run_dir)
 
@@ -290,7 +292,7 @@ def main(argv=None) -> PT.TrainState:
 
                 terms = evaluate_r(net, mano_stack, assets, loss_cfg, eval_loader, device, backend,
                                    max_batches=int(train_cfg.get("eval_max_batches", 0) or 0),
-                                   on_first_batch=certify)
+                                   on_first_batch=certify, chunk=chunk)
                 if not coordinator:
                     continue
                 _logger.info("%s epoch %04d refine eval | %s", split, epoch_id,

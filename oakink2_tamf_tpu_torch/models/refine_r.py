@@ -155,6 +155,7 @@ def multi_object_h2o_dist(
     x_perm: np.ndarray | None = None,
     frame_mask: torch.Tensor | None = None,  # [bs, L]
     backend: str = "auto",
+    chunk: int = 2048,
 ) -> torch.Tensor:
     """Unsigned hand->object distances [bs, L, 778]: per-object searches in
     each object's canonical frame (one shared cloud per (sample, object),
@@ -162,7 +163,8 @@ def multi_object_h2o_dist(
     slots count as PAD_OBJECT_H2O. With `frame_mask`, mask-padded frames are
     culled on the cull route and come out BIG: callers replace them (the
     other routes search them). `x_perm` tiles the hand rows on the culled
-    and cluster routes.
+    and cluster routes; `chunk` (train.chunk) is the xla route's tile of
+    object points.
     Differentiable in the hand verts (core/geometry.point2point_h2o with
     grad_y=False: the clouds come from the batch)."""
     bs, L, nhv, _ = hand_verts.shape
@@ -173,7 +175,7 @@ def multi_object_h2o_dist(
     if frame_mask is not None:
         x_valid = (frame_mask > 0)[:, None, :].expand(bs, nobj, L).reshape(bs * nobj * L)
     h2o = G.point2point_h2o(
-        x, y, y_valid, backend=backend, x_perm=x_perm, grad_y=False, y_group=L, x_valid=x_valid
+        x, y, y_valid, backend=backend, x_perm=x_perm, grad_y=False, y_group=L, x_valid=x_valid, chunk=chunk
     ).reshape(bs, nobj, L, nhv)
     h2o = torch.where(obj_mask[:, :, None, None], h2o, PAD_OBJECT_H2O)
     return torch.amin(h2o, dim=1)
@@ -209,6 +211,7 @@ def target_geometry(
     *,
     backend: str = "auto",
     frame_mask: torch.Tensor | None = None,
+    chunk: int = 2048,
 ) -> dict[str, torch.Tensor]:
     """Geometry of the GT target, a function of the batch alone, computed
     without autograd (the JAX package's stop_gradient). When the batch
@@ -225,7 +228,7 @@ def target_geometry(
         else:
             t_h2o = multi_object_h2o_dist(
                 t_verts, batch["obj_traj"], batch["obj_points"], batch["obj_mask"],
-                x_perm=mano_stack.template_perm, frame_mask=frame_mask, backend=backend,
+                x_perm=mano_stack.template_perm, frame_mask=frame_mask, backend=backend, chunk=chunk,
             )
     return {
         "target_hand_verts": t_verts,
@@ -241,6 +244,7 @@ def sample_geometry(
     *,
     frame_mask: torch.Tensor | None = None,
     backend: str = "auto",
+    chunk: int = 2048,
 ) -> dict[str, torch.Tensor]:
     """MANO recovery and h2o of `sample_pose_repr` (the network input).
 
@@ -253,7 +257,7 @@ def sample_geometry(
     )
     s_h2o = multi_object_h2o_dist(
         s_verts, batch["obj_traj"], batch["obj_points"], batch["obj_mask"],
-        x_perm=mano_stack.template_perm, frame_mask=frame_mask, backend=backend,
+        x_perm=mano_stack.template_perm, frame_mask=frame_mask, backend=backend, chunk=chunk,
     )
     if frame_mask is not None:
         pad_h2o = torch.linalg.vector_norm(s_verts[:, -1:], dim=-1)  # [bs, 1, 778]
@@ -275,6 +279,7 @@ def refine_forward(
     sample_geom: dict[str, torch.Tensor] | None = None,
     backend: str = "auto",
     loss_frame_mask: torch.Tensor | None = None,
+    chunk: int = 2048,
 ) -> dict[str, torch.Tensor]:
     """Sample geometry, the network's refinement, the refined geometry and
     (with_target) the GT target's geometry, with the JAX package's result
@@ -288,14 +293,14 @@ def refine_forward(
     form."""
     cond = {k: batch[k] for k in ("hand_side", "shape", "obj_embedding", "obj_traj", "obj_mask")}
     if sample_geom is None:
-        sample_geom = sample_geometry(mano_stack, batch, frame_mask=loss_frame_mask, backend=backend)
+        sample_geom = sample_geometry(mano_stack, batch, frame_mask=loss_frame_mask, backend=backend, chunk=chunk)
     output = net(batch["sample_pose_repr"], sample_geom["sample_h2o_dist"], cond)
     r_verts, r_joints, r_normals = batch_recover_mano(
         mano_stack, output, batch["shape"], batch["hand_side"]
     )
     r_h2o = multi_object_h2o_dist(
         r_verts, batch["obj_traj"], batch["obj_points"], batch["obj_mask"],
-        x_perm=mano_stack.template_perm, frame_mask=loss_frame_mask, backend=backend,
+        x_perm=mano_stack.template_perm, frame_mask=loss_frame_mask, backend=backend, chunk=chunk,
     )
     res = {
         "refine_pose_repr": output,
@@ -306,5 +311,5 @@ def refine_forward(
         **sample_geom,
     }
     if with_target:
-        res.update(target_geometry(mano_stack, batch, backend=backend, frame_mask=loss_frame_mask))
+        res.update(target_geometry(mano_stack, batch, backend=backend, frame_mask=loss_frame_mask, chunk=chunk))
     return res

@@ -290,6 +290,7 @@ def make_r_train_step(
     loss_cfg: LL.RefineLossConfig,
     *,
     backend: str = "auto",
+    chunk: int = 2048,
 ) -> Callable[..., dict[str, torch.Tensor]]:
     """The R train step (JAX make_r_train_step, parallel/train.py:276-332).
 
@@ -298,20 +299,21 @@ def make_r_train_step(
     torch.no_grad() (the JAX step's stop_gradient regions); only the
     refined branch (the net, MANO of its output and the h2o kernels'
     backward) is differentiated. Dropout draws from torch's global
-    generator. `backend` routes every h2o search (core/geometry.py)."""
+    generator. `backend` routes every h2o search (core/geometry.py);
+    `chunk` (train.chunk) is the xla route's tile of object points."""
 
     def step_fn(state: TrainState, batch: dict[str, Any]) -> dict[str, torch.Tensor]:
         net = state.model
         net.train()
         mask = batch["mask"]
         with torch.no_grad():
-            tgt = target_geometry(mano_stack, batch, backend=backend, frame_mask=mask)
+            tgt = target_geometry(mano_stack, batch, backend=backend, frame_mask=mask, chunk=chunk)
             # the padded-frame closed form of the network input (valid under
             # the zero-padding collate and adaptor contract)
-            sg = sample_geometry(mano_stack, batch, frame_mask=mask, backend=backend)
+            sg = sample_geometry(mano_stack, batch, frame_mask=mask, backend=backend, chunk=chunk)
         state.optimizer.zero_grad()
         out = refine_forward(net, mano_stack, batch, with_target=False, sample_geom=sg,
-                             backend=backend, loss_frame_mask=mask)
+                             backend=backend, loss_frame_mask=mask, chunk=chunk)
         out.update(tgt)
         loss, terms = LL.segment_refine_loss(assets, loss_cfg, out, batch)
         loss.backward()

@@ -420,8 +420,11 @@ def test_geometry_routes_and_refusals():
         TG.point2point_signed(_t(x), _t(y), _t(n), backend="cluster", y_normals=_t(y))
     with pytest.raises(NotImplementedError, match="y_group"):
         TG.point2point_signed(_t(x), _t(y[:1]), _t(n), backend="cluster", grad_y=False, y_group=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TG.point2point_signed(_t(x), _t(y), backend="xla")
+    # the streaming xla route is ported: its x2y squared is the exact
+    # search's within the expansion's rounding, and it refuses nothing here
+    xla = TG.point2point_signed(_t(x), _t(y), _t(n), _t(yv), backend="xla", chunk=128)
+    assert [tuple(t.shape) for t in xla] == [(2, 300), (2, 130), (2, 300)]
+    np.testing.assert_allclose(xla[1].numpy() ** 2, _exact_d2(x, y, yv).numpy(), rtol=0, atol=1e-7)
     with pytest.raises(ValueError):
         CC.point2point_h2o_cluster(_t(x), _t(y), k_cells=0)
 

@@ -146,14 +146,20 @@ def test_point2point_h2o_is_forward_only(monkeypatch):
 
 
 def test_point2point_h2o_refuses_unported_backends():
-    """What the routed entry point refuses: the unported "xla" backend (the
-    cluster route is ported: tests/test_torch_cluster.py), a gradient for a
-    shared cloud and the culled route with grad_y
-    (tests/test_torch_h2o_grad.py holds the gradients)."""
+    """What the routed entry point refuses: an unknown backend, a gradient
+    for a shared cloud and the culled route with grad_y
+    (tests/test_torch_h2o_grad.py holds the gradients). The "xla" backend
+    is ported (tests/test_torch_geometry_xla.py) and takes a shared cloud
+    without grad_y: here every point is at the origin, so distance 0 and a
+    zero gradient."""
     x = torch.zeros(2, 4, 3, requires_grad=True)
     y = torch.zeros(1, 8, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TG.point2point_h2o(x, y, backend="xla", grad_y=False, y_group=2)
+    d = TG.point2point_h2o(x, y, backend="xla", grad_y=False, y_group=2)
+    assert torch.equal(d, torch.zeros(2, 4))
+    d.sum().backward()
+    assert torch.equal(x.grad, torch.zeros(2, 4, 3))
+    with pytest.raises(ValueError):
+        TG.point2point_h2o(x, y, backend="nope", grad_y=False, y_group=2)
     with pytest.raises(NotImplementedError):
         TG.point2point_h2o(x, y, y_group=2)  # grad_y=True with a shared cloud
     with pytest.raises(NotImplementedError):

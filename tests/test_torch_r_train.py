@@ -178,19 +178,21 @@ def jax_r_reference():
     return b, jparams, _jax_r_step(b, jparams, SMALL)
 
 
-@pytest.mark.parametrize("backend", ["auto", "cull"])
+@pytest.mark.parametrize("backend", ["auto", "cull", "xla"])
 def test_r_train_step_matches_jax(backend, jax_r_reference):
     """One whole R train step, port on the CPU vs the JAX package's
     make_r_train_step(mesh=None) on the same weights and batch, dropout 0.
-    The JAX CPU route is its exact XLA scan; the port runs its all-pairs
-    route ("auto" at 64 points) or the culled one."""
+    The JAX CPU route is its exact XLA scan (what h2o_backend "auto" and
+    "xla" both take there); the port runs its all-pairs route ("auto" at 64
+    points), the culled one, or the same streaming scan ("xla", at JAX's
+    chunk of 64 points)."""
     b, jparams, (jm, jclipped, jnew) = jax_r_reference
 
     net = R.SegmentRefineNet(R.RefineConfig(**SMALL))
     net.load_state_dict(from_jax.r_state_dict_from_flax(jparams))
     state = PT.TrainState(net, PT.make_optimizer(net.named_parameters()))
     _, pst = _manos()
-    step = PT.make_r_train_step(pst, LL.load_contact_assets(), LL.RefineLossConfig(), backend=backend)
+    step = PT.make_r_train_step(pst, LL.load_contact_assets(), LL.RefineLossConfig(), backend=backend, chunk=64)
     kernel = CU.DVEC_KERNEL if backend == "cull" else NN.DVEC_KERNEL
     launches = kernel.launches
     metrics = step(state, {k: _t(v) for k, v in b.items()})
@@ -363,8 +365,9 @@ def test_train_r_refuses_what_is_not_ported(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     base = ["--cfg", os.path.join(REPO, "config/synthetic_smoke.yml"), "--runtime.device", "cpu",
             "--train.num_epoch", "1", "--train.data.cache_target_h2o", "false"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_r.main(base + ["--train.h2o_backend", "xla"])
+    # the streaming xla route is ported: the smoke config's step runs on it
+    state = train_r.main(base + ["--train.h2o_backend", "xla"])
+    assert state.step >= 1 and all(torch.isfinite(p).all() for p in state.model.parameters())
     # real data is ported: without a cache_dict or a toolkit there is nothing to load
     with pytest.raises(ValueError, match="need cache_dict"):
         train_r.main(base + ["--data.synthetic", "false"])
