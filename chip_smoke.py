@@ -222,6 +222,24 @@ Phases (any failure exits non-zero and prints no result line):
    launch/save_cache_dict on the smoke config, each writing its files (the
    HTML viewers; the PNGs only where matplotlib is installed, else the
    arrays each figure would draw are checked).
+27. the JAX package's checkpoint format (runtime/ckpt.save_checkpoint and
+   the `.ckpt` loaders): G at arch_mdm_l on the fused route (batch 64 x
+   160 frames x 4 objects x 8192 points, fixed t and noise) and R at
+   arch_refine on the all-pairs route (2048 points) each take one step,
+   are saved as .pt and as .ckpt and loaded into fresh states: both
+   bit-equal to the state saved (parameters, AdamW moments and step, lr,
+   schedule count); after one more step of each on the same batch and
+   seed, the .ckpt resume within 1e-6 of each tensor's norm of the .pt
+   resume, plus 4 times the worst share of a norm by which two resumes
+   that no .ckpt touched part (G's step is not bitwise reproducible on
+   the card, R's is; attention's key bias, whose true gradient is 0,
+   within AdamW's largest move twice);
+   the .ckpt's size, write and
+   read + convert + load seconds, the load's device and host peaks; then
+   serving.TamfPipeline.load from the two .ckpt files and the two .pt
+   files, a generate of 16 segments each on the cull route at 8192 points
+   with 50 respaced steps from one seed: outputs within 1e-6 (#1, #2, #4,
+   #6 and #8 counted in the kernels line).
 
 The line before the last is the card's name and power limit
 (nvidia-smi); before it, one JSON line with every kernel's numbers. The
@@ -4961,6 +4979,226 @@ def debug_launchers() -> dict:
     return dict(walls=walls, debug_refine_launches=counts, png_drawn=drawn)
 
 
+# ---------------------------------------------------------------------------
+# The JAX package's checkpoint format (runtime/ckpt: .ckpt beside .pt)
+# ---------------------------------------------------------------------------
+
+CKPT_PHASE_KERNELS = ("h2o_nn", "h2o_cull", "h2o_nn_dvec", "nn_signed", "dist_loss")  # #1, #2, #4, #6, #8
+
+
+def _state_tensors(state):
+    """(name, parameter, exp_avg, exp_avg_sq) of each trainable parameter."""
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    for p in state.optimizer.params:
+        st = state.optimizer.adamw.state[p]
+        yield names[id(p)], p.detach(), st["exp_avg"], st["exp_avg_sq"]
+
+
+def _split_key_bias(name: str, x):
+    """(the part of `x` a train step resolves, attention's key-bias block
+    or None): in_proj_bias is [q; k; v], and softmax ignores a key bias,
+    so its true gradient is 0 and a step's rounding noise decides its
+    AdamW move."""
+    import torch
+
+    if not name.endswith("in_proj_bias"):
+        return x, None
+    q, k, v = x.chunk(3)
+    return torch.cat([q, v]), k
+
+
+def _resume_through_both_formats(label: str, a, fresh, do_step, tmp: str):
+    """State `a` (one step taken) saved as .pt (save_train_state) and as
+    .ckpt (save_checkpoint); fresh states B (from the .pt) and C (from the
+    .ckpt) must equal A bit for bit (parameters, AdamW moments and step,
+    lr, schedule count). Then A, B and C take one more step through
+    `do_step`: C must equal B within 1e-6 of each tensor's norm (parameters
+    and both moments) plus 4 times the worst share of a norm by which A and
+    B part, two resumes that no .ckpt touched: G's step is not bitwise
+    reproducible on the card, R's is (0 there). Attention's key-bias block
+    is held apart from that by AdamW's largest move (_split_key_bias). ->
+    (the .ckpt's and the .pt's sizes and write seconds, the .ckpt's read +
+    convert + load seconds, the load's device and host peaks, the
+    differences; (the .pt's path, the .ckpt's))."""
+    import tracemalloc
+
+    import torch
+
+    from oakink2_tamf_tpu_torch.runtime.ckpt import load_checkpoint, save_checkpoint, save_train_state
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pt = save_train_state(tmp, 0, a, prefix=label)
+    pt_write = time.perf_counter() - t0
+    ck = os.path.join(tmp, f"{label}_0000.ckpt")
+    t0 = time.perf_counter()
+    save_checkpoint(ck, a)
+    ck_write = time.perf_counter() - t0
+    b = fresh()
+    load_checkpoint(pt, b, strict=True)
+    c = fresh()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    load_checkpoint(ck, c, strict=True)
+    torch.cuda.synchronize()
+    ck_read = time.perf_counter() - t0
+    dev_peak = (torch.cuda.max_memory_allocated() - before) / 2**20
+    d = fresh()  # the same load again under tracemalloc (numpy's buffers are traced), untimed
+    tracemalloc.start()
+    load_checkpoint(ck, d, strict=True)
+    host_peak = tracemalloc.get_traced_memory()[1] / 2**20
+    tracemalloc.stop()
+    del d
+    for x, y in ((a, b), (b, c)):
+        for (n, *xs), (_, *ys) in zip(_state_tensors(x), _state_tensors(y)):
+            require(all(torch.equal(u, w) for u, w in zip(xs, ys)), f"{label}: {n} not bit-equal after the load")
+        ox, oy = x.optimizer, y.optimizer
+        require(x.step == y.step and ox.lr == oy.lr and ox.scheduler.last_epoch == oy.scheduler.last_epoch
+                and {float(s["step"]) for s in ox.adamw.state.values()}
+                == {float(s["step"]) for s in oy.adamw.state.values()},
+                f"{label}: step {y.step} lr {oy.lr} after the load, {x.step} {ox.lr} before")
+
+    for s in (a, b, c):
+        do_step(s)
+    torch.cuda.synchronize()
+    lr = b.optimizer.adamw.param_groups[0]["lr"]
+    gaps = {"C vs B": [0.0, 0.0, 0.0], "A vs B": [0.0, 0.0, 0.0]}  # largest abs, worst share of a norm, key bias
+    rows = []  # (tensor, C vs B gap, its norm)
+    for (n, *bs), (_, *cs), (_, *as_) in zip(_state_tensors(b), _state_tensors(c), _state_tensors(a)):
+        for i, xs in enumerate(zip(bs, cs, as_)):
+            (rb, kb), (rc, kc), (ra, ka) = (_split_key_bias(n, x) for x in xs)
+            norm = rb.norm().item()
+            for pair, ro, ko in (("C vs B", rc, kc), ("A vs B", ra, ka)):
+                g = gaps[pair]
+                g[0] = max(g[0], (rb - ro).abs().max().item())
+                g[1] = max(g[1], (rb - ro).norm().item() / norm if norm else 0.0)
+                if kb is not None and i == 0:
+                    g[2] = max(g[2], (kb - ko).abs().max().item())
+            rows.append((f"{n}{('', ' exp_avg', ' exp_avg_sq')[i]}", (rb - rc).norm().item(), norm))
+    # the step's own reproducibility: A vs B's worst share of a norm, two
+    # resumes that no .ckpt touched (0 where the step is bitwise reproducible)
+    share = 1e-6 + 4 * gaps["A vs B"][1]
+    for name, gap, norm in rows:
+        require(gap <= share * norm, f"{label} resumed from .ckpt vs .pt: {name} differs by {gap} (norm {norm}, "
+                                     f"allowed {share:.3g} of it)")
+    # AdamW's move at its second step is at most 1.0014 lr (Cauchy-Schwarz over
+    # betas 0.9, 0.999 and their bias corrections), so two runs part by 2.0028 lr
+    require(gaps["C vs B"][2] <= 2.0028 * lr, f"{label}: the key bias moved {gaps['C vs B'][2]} apart (lr {lr})")
+    oa, oc = a.optimizer, c.optimizer
+    require(c.step == a.step and oc.lr == oa.lr and oc.scheduler.last_epoch == oa.scheduler.last_epoch,
+            f"{label}: resumed from .ckpt at step {c.step} lr {oc.lr}, A at step {a.step} lr {oa.lr}")
+    out = dict(ckpt_mb=os.path.getsize(ck) / 2**20, pt_mb=os.path.getsize(pt) / 2**20, ckpt_write_s=ck_write,
+               pt_write_s=pt_write, ckpt_read_convert_s=ck_read, load_device_peak_mib=dev_peak,
+               load_host_peak_mib=host_peak, step=c.step, lr=oc.lr,
+               **{f"{k} {w}": v for k, g in gaps.items() for w, v in zip(("max_abs", "worst_norm_share",
+                                                                          "key_bias_max_abs"), g)})
+    print(f"{label}: B (from .pt) and C (from .ckpt) bit-equal to A after the load; after one more step C vs B "
+          f"largest difference {gaps['C vs B'][0]:.3g} (worst {gaps['C vs B'][1]:.3g} of a tensor's norm), A vs "
+          f"B {gaps['A vs B'][0]:.3g} ({gaps['A vs B'][1]:.3g}), outside attention's key bias, which moved "
+          f"{gaps['C vs B'][2]:.3g} / {gaps['A vs B'][2]:.3g} apart (lr {lr}); step {c.step}, lr {oc.lr} as A's; "
+          f".ckpt {out['ckpt_mb']:.2f} MiB written in {ck_write:.3f} s (.pt {out['pt_mb']:.2f} MiB in "
+          f"{pt_write:.3f} s), read + convert + load {ck_read:.3f} s, load peaks {dev_peak:.1f} MiB on the card "
+          f"and {host_peak:.1f} MiB of host arrays", flush=True)
+    return out, (pt, ck)
+
+
+def jax_ckpt_path(dev: str = "cuda") -> tuple[dict, dict]:
+    """The JAX package's checkpoint format on the card: G at arch_mdm_l on
+    the fused route (batch 64 x 160 frames x 4 objects x 8192 points, t and
+    noise fixed) and R at arch_refine on the all-pairs route (2048 points)
+    each resumed from a .ckpt that runtime/ckpt.save_checkpoint wrote and
+    from the .pt of the same state (_resume_through_both_formats); then
+    serving.TamfPipeline.load from the two .ckpt files and from the two .pt
+    files, one generate of 16 segments each on the cull route at 8192
+    points with 50 respaced steps from one seed: outputs within 1e-6. The
+    counts of #1, #2, #4, #6 and #8 are set to 0 at the start and read at
+    the end. -> (those counts, stats). `dev` other than "cuda" only
+    rehearses the control flow (with torch.cuda's calls stubbed)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from oakink2_tamf_tpu_torch.data.synthetic import SyntheticSegments
+    from oakink2_tamf_tpu_torch.models.clip_text import FrozenClipText
+    from oakink2_tamf_tpu_torch.models.mdm_g import InteractionSegmentMDM, MDMConfig
+    from oakink2_tamf_tpu_torch.models.refine_r import RefineConfig, SegmentRefineNet
+    from oakink2_tamf_tpu_torch.parallel import train as PT
+    from oakink2_tamf_tpu_torch.serving import TamfPipeline
+
+    dev = torch.device(dev)
+    kernels = _all_kernels()
+    _zero_counts(kernels)
+    stats, files = {"card": card_line()}, {}
+
+    def fresh(build):
+        def make():
+            torch.manual_seed(1)  # other weights than A's: the load must overwrite them
+            m = build().to(dev)
+            return PT.TrainState(m, PT.make_optimizer(m.named_parameters()))
+        return make
+
+    with tempfile.TemporaryDirectory(prefix="tamf_jax_ckpt_") as tmp:
+        clip = FrozenClipText(device=dev)
+        db = _train_batch(TRAIN_BS, TRAIN_L, TRAIN_NOBJ, TRAIN_P, seed=11, clip=clip, device=dev)
+        del clip
+        gen = torch.Generator(device=dev).manual_seed(3)
+        db.update(t=torch.randint(0, 1000, (TRAIN_BS,), device=dev, generator=gen),
+                  t_weights=torch.ones(TRAIN_BS, device=dev))
+        noise = torch.randn(db["pose_repr"].shape, device=dev, generator=gen)
+        a, g_step, _ = _g_training(dev, MDMConfig.arch_mdm_l(), "auto")
+
+        def g_once(s):
+            torch.manual_seed(5)  # dropout and the cond mask
+            g_step(s, db, noise=noise)
+
+        g_once(a)
+        stats["g"], files["g"] = _resume_through_both_formats(
+            "G", a, fresh(lambda: InteractionSegmentMDM(MDMConfig.arch_mdm_l())), g_once, tmp)
+        del a, db, noise
+        torch.cuda.empty_cache()
+
+        a, r_step, mano, _ = _r_training(dev, RefineConfig(), "auto")
+        db, _ = _r_batch(TRAIN_BS, TRAIN_L, TRAIN_NOBJ, R_ALL_PAIRS_P, 11, mano, dev)
+
+        def r_once(s):
+            torch.manual_seed(5)  # dropout
+            r_step(s, db)
+
+        r_once(a)
+        stats["r"], files["r"] = _resume_through_both_formats(
+            "R", a, fresh(lambda: SegmentRefineNet(RefineConfig())), r_once, tmp)
+        del a, db
+        torch.cuda.empty_cache()
+
+        ds = SyntheticSegments(16, seq_len=160, max_nobj=4, n_obj_points=TRAIN_P, seed=11)
+        segs = [ds[i] for i in range(16)]
+        outs, walls = {}, {}
+        for fmt, i in (("pt", 0), ("ckpt", 1)):
+            t0 = time.perf_counter()
+            pipe = TamfPipeline.load(files["g"][i], files["r"][i], device=dev, diffusion_steps=1000,
+                                     timestep_respacing="50", batch_size=16, seq_len=160, max_nobj=4,
+                                     n_obj_points=TRAIN_P)
+            outs[fmt] = pipe.generate(segs, generator=torch.Generator(device=dev).manual_seed(0))
+            torch.cuda.synchronize()
+            walls[fmt] = time.perf_counter() - t0
+            del pipe
+    gap = max(float(np.abs(x[k] - y[k]).max()) for x, y in zip(outs["pt"], outs["ckpt"]) for k in x)
+    require(len(outs["ckpt"]) == 16 and all(np.isfinite(v).all() for r in outs["ckpt"] for v in r.values()),
+            "serving from .ckpt: non-finite or missing output")
+    require(gap <= 1e-6, f"serving from .ckpt vs from .pt: outputs differ by {gap}")
+    counts = {n: kernels[n].launches for n in CKPT_PHASE_KERNELS}
+    for n in CKPT_PHASE_KERNELS:
+        require(counts[n] > 0, f"the .ckpt phase never launched {n}: {counts}")
+    stats["serving"] = dict(max_abs_diff=gap, load_generate_s=walls)
+    print(f"serving (cull route, 8192 points, 50 respaced steps) from the .ckpt files vs the .pt files: largest "
+          f"difference {gap:.3g}; load + generate(16) {walls['ckpt']:.2f} s / {walls['pt']:.2f} s; the phase's "
+          f"launches {counts} ({stats['card']})", flush=True)
+    return counts, stats
+
+
 def main() -> int:
     import torch
 
@@ -5131,19 +5369,25 @@ def main() -> int:
     xla_stats = {"route": xla_route(), "vertex_normals": vertex_normals_scatter(),
                  "r_step": r_xla_main_path(r_ap_step_s), "launchers": debug_launchers()}
     print("xla: " + json.dumps(xla_stats), flush=True)
+    phase("the JAX package's checkpoint format: G and R resumed from .ckpt and .pt, serving from both")
+    ckpt_counts, ckpt_stats = jax_ckpt_path()
+    print("jax_ckpt: " + json.dumps(ckpt_stats), flush=True)
     # each kernel's count from the paths that run it: serving for #1/#2 (#1
     # also in sample_r and in compute_score's CR on its output and on the
     # real-format data, #2 also in the full-width G->R chain), the fused G
     # training path for #6/#8, its fused_cull route for #9, the
     # composed route for #7, the R training paths for #3 (cull) and #4
     # (all-pairs), the grad_y path for #5, the R cluster route for #10/#11,
-    # the signed cluster entry point for #12/#13
-    launches = {"h2o_nn": nn_counts["h2o_nn"] + launcher_nn + chain_score_nn + score_nn,
-                "h2o_cull": cull_counts["h2o_cull"] + chain_cull,
-                "nn_signed": train_counts["nn_signed"], "dist_loss": train_counts["dist_loss"],
+    # the signed cluster entry point for #12/#13; the .ckpt phase for #1, #2,
+    # #4, #6 and #8
+    launches = {"h2o_nn": nn_counts["h2o_nn"] + launcher_nn + chain_score_nn + score_nn + ckpt_counts["h2o_nn"],
+                "h2o_cull": cull_counts["h2o_cull"] + chain_cull + ckpt_counts["h2o_cull"],
+                "nn_signed": train_counts["nn_signed"] + ckpt_counts["nn_signed"],
+                "dist_loss": train_counts["dist_loss"] + ckpt_counts["dist_loss"],
                 "dist_loss_cull": fc_counts["dist_loss_cull"],
                 "nn_signed_bwd": composed_counts["nn_signed_bwd"],
-                "h2o_cull_dvec": r_counts["h2o_cull_dvec"], "h2o_nn_dvec": r_ap_counts["h2o_nn_dvec"],
+                "h2o_cull_dvec": r_counts["h2o_cull_dvec"],
+                "h2o_nn_dvec": r_ap_counts["h2o_nn_dvec"] + ckpt_counts["h2o_nn_dvec"],
                 "h2o_nn_bwd": gy_counts["h2o_nn_bwd"],
                 "h2o_topk": rc_counts["h2o_topk"], "h2o_topk_bwd": rc_counts["h2o_topk_bwd"],
                 "o2h_topk": sc_counts["o2h_topk"], "o2h_topk_bwd": sc_counts["o2h_topk_bwd"]}

@@ -17,7 +17,8 @@ card: core/geometry.min_cdist), SIV's containment tests on the host (the
 C++ triangle hash of native/, one frame per thread of a pool: the library
 call releases the GIL), PSKL-J on the host, FID's encoder forward on
 the run's device in batches of 16. `score.encoder_filepath` takes the
-port's own checkpoint (run under model.activation) or a reference
+port's own checkpoint or the JAX package's `.ckpt` (run under
+model.activation) or a reference
 state_dict such as encoder__fid_1/save/model_0399.pt (run under
 "gelu_exact"); empty = random weights from runtime.seed.
 """

@@ -10,14 +10,33 @@ The inverse of the JAX package's interop/torch_port `_lin/_attn/_trunk`:
 flax Dense kernel [in, out] -> Linear weight [out, in]; per-head attention
 q/k/v kernels [d, heads, head_dim] -> packed in_proj [3d, d]; out kernel
 [heads, head_dim, d] -> out_proj [d, d]; LayerNorm scale -> weight.
+Every converter is a pure rearrangement (transposes, reshapes, the q/k/v
+concatenation), so it also maps the optimizer's moments, which have the
+params' tree.
+
+The file level: `read_jax_checkpoint` reads what the JAX package's
+runtime/ckpt.save_checkpoint writes (a pickle of a flat {"a/b/c": ndarray}
+dict: a TrainState's keys 0 step, 1/... variables, 2/... the optax chain's
+state, or a bare variables tree's params/...), through an unpickler that
+admits numpy arrays and nothing else; `state_dict_from_jax_checkpoint` and
+`optimizer_state_from_jax_checkpoint` turn it into a G, R or FID-encoder
+state_dict and the port Optimizer's AdamW and MultiStepLR state.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+import dataclasses
+import importlib
+import os
+import pickle
+from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
+
+from ..models.encoder import SegmentEncoder
+from ..models.mdm_g import InteractionSegmentMDM
+from ..models.refine_r import SegmentRefineNet
 
 
 def _params(tree: Mapping[str, Any]) -> Mapping[str, Any]:
@@ -97,14 +116,19 @@ def r_state_dict_from_flax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     return sd
 
 
-def encoder_state_dict_from_flax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """JAX SegmentEncoder variables (params and the `buffers` collection)
-    -> SegmentEncoder state_dict: the MLP head's fc0/fc1/fc2 become
-    output_process.poseFinal.0/.2/.4, the buffer classification_token."""
+def _encoder_params(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     p = _params(tree)
     sd = _cond_trunk(p)
     for i, name in enumerate(("fc0", "fc1", "fc2")):
         sd.update(_lin(p["output_process"][name], f"output_process.poseFinal.{2 * i}"))
+    return sd
+
+
+def encoder_state_dict_from_flax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX SegmentEncoder variables (params and the `buffers` collection)
+    -> SegmentEncoder state_dict: the MLP head's fc0/fc1/fc2 become
+    output_process.poseFinal.0/.2/.4, the buffer classification_token."""
+    sd = _encoder_params(tree)
     sd["classification_token"] = _t(tree["buffers"]["classification_token"])
     return sd
 
@@ -171,3 +195,151 @@ def pointbert_state_dict_from_flax(tree: Mapping[str, Any]) -> dict[str, torch.T
         sd.update(_lin(bp["mlp_fc1"], f"{q}.mlp.fc1"))
         sd.update(_lin(bp["mlp_fc2"], f"{q}.mlp.fc2"))
     return sd
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's checkpoint file (its runtime/ckpt.save_checkpoint)
+# ---------------------------------------------------------------------------
+
+# what pickled numpy arrays reference: ndarray reconstruction under protocol
+# 5 (_frombuffer) and earlier ones (_reconstruct), and dtypes. numpy 2 keeps
+# these modules in numpy._core, numpy 1 in numpy.core: a file names the one
+# of the numpy that wrote it
+_NUMPY_GLOBALS = {
+    ("numpy", "ndarray"), ("numpy", "dtype"), ("numpy.core.numeric", "_frombuffer"),
+    ("numpy.core.multiarray", "_reconstruct"),
+}
+
+
+class _NumpyOnlyUnpickler(pickle.Unpickler):
+    """Resolves only the globals numpy arrays need; any other global (a
+    callable a crafted pickle would run) raises before it is called."""
+
+    def find_class(self, module: str, name: str):
+        canonical = module.replace("numpy._core.", "numpy.core.", 1)
+        if (canonical, name) not in _NUMPY_GLOBALS:
+            raise pickle.UnpicklingError(
+                f"refusing global {module}.{name}: a JAX package checkpoint holds numpy arrays only")
+        if module == "numpy":
+            return getattr(np, name)
+        for where in (canonical.replace("numpy.core.", "numpy._core.", 1), canonical):
+            try:
+                return getattr(importlib.import_module(where), name)
+            except (ImportError, AttributeError):
+                continue
+        raise pickle.UnpicklingError(f"{module}.{name}: not in numpy {np.__version__}")
+
+
+@dataclasses.dataclass
+class JaxCheckpoint:
+    """A JAX package checkpoint: the variables tree ({"params": ...} and,
+    for the encoder, {"buffers": ...}) and, from a train state, its step
+    and the optax chain's AdamW moments (`mu`, `nu`: the variables' tree),
+    adam count and schedule count. A bare variables pickle has no step and
+    no optimizer (None)."""
+
+    variables: dict
+    step: Optional[int] = None
+    mu: Optional[dict] = None
+    nu: Optional[dict] = None
+    adam_count: Optional[int] = None
+    schedule_count: Optional[int] = None
+
+
+def _unflatten(flat: Mapping[str, Any]) -> dict:
+    out: dict = {}
+    for k, v in flat.items():
+        *parents, leaf = k.split("/")
+        cur = out
+        for p in parents:
+            cur = cur.setdefault(p, {})
+        cur[leaf] = v
+    return out
+
+
+def read_jax_checkpoint(path: str) -> JaxCheckpoint:
+    """Read a `.ckpt` of the JAX package's pickle backend: a train state
+    (save_train_state's model_XXXX.ckpt: keys 0, 1/..., 2/1/0/{count,mu,nu},
+    2/1/2/count: the positions of make_optimizer's optax chain) or a bare
+    variables tree (save_checkpoint(path, params): keys params/...). An
+    orbax directory raises: reading it needs orbax and tensorstore."""
+    if os.path.isdir(path) or str(path).rstrip("/").endswith(".orbax"):
+        raise ValueError(
+            f"{path}: an orbax checkpoint directory. The port reads only the JAX package's pickle "
+            "backend: save_train_state(..., backend=\"pickle\"), the default, which writes model_XXXX.ckpt")
+    with open(path, "rb") as f:
+        try:
+            flat = _NumpyOnlyUnpickler(f).load()
+        except pickle.UnpicklingError as e:
+            raise ValueError(f"{path}: {e}") from None
+    if not isinstance(flat, dict) or not all(isinstance(k, str) for k in flat):
+        raise ValueError(f"{path}: not a JAX package checkpoint (a pickled {{str: ndarray}} dict)")
+    tree = _unflatten(flat)
+    if "params" in tree:
+        return JaxCheckpoint(variables=tree)
+    if "0" not in tree or "1" not in tree:
+        raise ValueError(f"{path}: neither a train state (keys 0, 1/..., 2/...) nor variables (params/...)")
+    ck = JaxCheckpoint(variables=tree["1"], step=int(tree["0"]))
+    if "2" in tree:
+        chain = tree["2"].get("1", {})  # (per_param_clip: no state, adamw: (adam, decay, schedule))
+        adam, sched = chain.get("0", {}), chain.get("2", {})
+        if not {"count", "mu", "nu"} <= set(adam) or "count" not in sched:
+            raise ValueError(f"{path}: the optimizer state is not in the layout of the JAX package's "
+                             f"make_optimizer (2/1/0/{{count,mu,nu}}, 2/1/2/count); it has {sorted(flat)[:4]}...")
+        ck.mu, ck.nu = adam["mu"], adam["nu"]
+        ck.adam_count, ck.schedule_count = int(adam["count"]), int(sched["count"])
+    return ck
+
+
+# the module classes a JAX checkpoint can be loaded into: (variables ->
+# state_dict, params only -> state_dict, which the moments go through: the
+# encoder's moments also hold its buffers, which train nothing)
+_CONVERTERS = (
+    (InteractionSegmentMDM, g_state_dict_from_flax, g_state_dict_from_flax),
+    (SegmentRefineNet, r_state_dict_from_flax, r_state_dict_from_flax),
+    (SegmentEncoder, encoder_state_dict_from_flax, _encoder_params),
+)
+
+
+def _converters(module: torch.nn.Module):
+    for cls, full, params_only in _CONVERTERS:
+        if isinstance(module, cls):
+            return full, params_only
+    raise TypeError(f"no JAX checkpoint converter for {type(module).__name__}: one of "
+                    f"{[c[0].__name__ for c in _CONVERTERS]}")
+
+
+def state_dict_from_jax_checkpoint(module: torch.nn.Module, ck: JaxCheckpoint) -> dict[str, torch.Tensor]:
+    """The checkpoint's variables as `module`'s state_dict (G, R or the FID
+    encoder, by the module's class)."""
+    return _converters(module)[0](ck.variables)
+
+
+def optimizer_state_from_jax_checkpoint(model: torch.nn.Module, optimizer, ck: JaxCheckpoint) -> None:
+    """Set `optimizer` (parallel/train.Optimizer over `model`'s parameters)
+    to the checkpoint's: AdamW's exp_avg / exp_avg_sq are mu / nu through
+    the params' converter, its step the adam count, at each trainable
+    parameter's position in optimizer.params; the MultiStepLR's last_epoch
+    is the schedule count and the learning rate base_lr * gamma ** (the
+    number of milestones <= count), the optax schedule's value there. A
+    parameter the moments lack starts with no AdamW state."""
+    to_sd = _converters(model)[1]
+    mu, nu = to_sd(ck.mu), to_sd(ck.nu)
+    names = {id(p): n for n, p in model.named_parameters()}
+    sd = optimizer.adamw.state_dict()
+    sd["state"] = {}
+    for i, p in enumerate(optimizer.params):
+        n = names[id(p)]
+        if n not in mu:
+            continue
+        if mu[n].shape != p.shape or nu[n].shape != p.shape:
+            raise ValueError(f"{n}: moments of shape {tuple(mu[n].shape)} for a parameter of {tuple(p.shape)}")
+        sd["state"][i] = {"step": torch.tensor(float(ck.adam_count)), "exp_avg": mu[n], "exp_avg_sq": nu[n]}
+    sched = optimizer.scheduler
+    count = int(ck.schedule_count)
+    lrs = [b * sched.gamma ** sum(c for m, c in sched.milestones.items() if m <= count) for b in sched.base_lrs]
+    for g, lr in zip(sd["param_groups"], lrs):
+        g["lr"] = lr
+    optimizer.adamw.load_state_dict(sd)
+    sched.last_epoch = count
+    sched._last_lr = [g["lr"] for g in optimizer.adamw.param_groups]

@@ -31,7 +31,7 @@ from ..data.synthetic import SyntheticSegments
 from ..models.clip_text import FrozenClipText
 from ..parallel import mesh
 from ..runtime import logging as RL
-from ..runtime.ckpt import RunDir, read_model_state_dict
+from ..runtime.ckpt import RunDir, is_jax_checkpoint, read_model_state_dict
 from ..runtime.logging import MetricWriter
 from ..runtime.config import ConfigRegistry, sync_global_timestamp
 
@@ -263,12 +263,12 @@ PORT_ACTIVATION = "gelu_exact"  # torch's F.gelu, the reference trunk's activati
 
 def activation_for_checkpoint(reg, filepath) -> str | None:
     """The activation a net must be built with to run the weights in
-    `filepath`, or None for the config's `model.activation`. The file's
-    content decides: a bare state_dict is a reference checkpoint, trained
-    under torch's exact-erf GELU, so "gelu_exact" (with a warning when the
-    config says otherwise); the port's own {step, model, optimizer}
-    checkpoint was trained under the config's activation."""
-    if not filepath:
+    `filepath`, or None for the config's `model.activation`. The file
+    decides: a bare state_dict is a reference checkpoint, trained under
+    torch's exact-erf GELU, so "gelu_exact" (with a warning when the config
+    says otherwise); the port's own {step, model, optimizer} checkpoint and
+    the JAX package's `.ckpt` were trained under the config's activation."""
+    if not filepath or is_jax_checkpoint(filepath):
         return None
     _, own = read_model_state_dict(filepath)
     if own:

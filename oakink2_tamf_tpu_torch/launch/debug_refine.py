@@ -14,7 +14,8 @@ data.n_obj_points points, and R's deterministic forward with the target
 branch (models/refine_r.refine_forward, every frame searched) runs on the
 run's device, its h2o searches on the kernels' route for that cloud size.
 A .pt is a reference state_dict (run under "gelu_exact") or a port train
-checkpoint (launch/common.activation_for_checkpoint, runtime/ckpt);
+checkpoint, a .ckpt the JAX package's (launch/common.activation_for_checkpoint,
+runtime/ckpt);
 without one R is randomly initialised from seed 0.
 
 Per segment it writes

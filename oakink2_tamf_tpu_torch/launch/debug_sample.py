@@ -11,8 +11,8 @@ clouds) and, with --html, sample_<i>.html, for the first `n_samples`
 segments of the test split. The chain is core/diffusion.p_sample_loop
 (clip_denoised off) on a generator seeded 0 on the run's device. Without
 --model_filepath G is randomly initialised from seed 0; a .pt is a
-reference state_dict (run under "gelu_exact") or a port train checkpoint
-(launch/common.activation_for_checkpoint). As in the JAX script the batch
+reference state_dict (run under "gelu_exact") or a port train checkpoint,
+a .ckpt the JAX package's (launch/common.activation_for_checkpoint). As in the JAX script the batch
 is collated at 2 object slots of 512 points whatever data.* says, and
 --refine_filepath is registered but unused.
 """

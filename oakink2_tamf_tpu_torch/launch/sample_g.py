@@ -17,7 +17,8 @@ range; every batch holds `sample.batch_size` segments, the tail padded by
 repeating its last one; the noise comes from one generator on the device
 seeded runtime.seed + shard index. A `.pt` model_filepath is either a
 reference state_dict (run under "gelu_exact") or the port's own train
-checkpoint (run under model.activation): launch/common.activation_for_checkpoint.
+checkpoint, and a `.ckpt` the JAX package's (both run under
+model.activation): launch/common.activation_for_checkpoint.
 Without one, G is randomly initialised from seed 0. Nothing is written
 without --commit.
 """

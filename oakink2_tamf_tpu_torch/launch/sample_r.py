@@ -19,8 +19,9 @@ the deduplicated list is split into contiguous shards
 (launch/common.resolve_shard). Output layout:
   <run dir>/sample/<save_prefix or exp_id>/<process_key, "/" -> "++">/<info[1]>/<info[2]>/save_dict.pkl
 with keys process_key, info, hand_side, joints, verts, faces (closed MANO
-faces of the side), obj_list, len, frame_id, refine_pose_repr. Nothing is
-written without --commit.
+faces of the side), obj_list, len, frame_id, refine_pose_repr. A `.pt`
+model_filepath runs as sample_g's does, a `.ckpt` (the JAX package's) under
+model.activation. Nothing is written without --commit.
 """
 
 from __future__ import annotations

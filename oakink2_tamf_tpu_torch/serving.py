@@ -10,7 +10,9 @@ pipeline's `sampler` ("ddpm", "ddim", "plms", or "parallel": Picard windows
 of `parallel_window` steps at tolerance `parallel_tol`, for small batches),
 G's output is zeroed past each segment's true length before R, and R runs
 with the batch mask as its frame mask. Checkpoints are reference
-state_dicts or the port's own train checkpoints (runtime/ckpt.py). The
+state_dicts, the port's own train checkpoints or the JAX package's `.ckpt`
+(runtime/ckpt.py); the nets run under the activation of the configs passed
+in. The
 whole call runs under torch.inference_mode().
 """
 
