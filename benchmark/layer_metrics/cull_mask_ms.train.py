@@ -1,0 +1,26 @@
+"""Device ms per train step inside the program's `cull.mask` spans
+(runtime/profiler.py, read with report() after the traced window): the
+plain-PyTorch h2o cull mask (ops/chamfer_cull.cull_mask), twice in an R step
+whose target h2o is cached. A device span's time is the stream's between its
+two CUDA events. The step count is the program's own top-level step spans, and
+must equal the traced window's. Silent without a trace, where the program has
+no recorder of spans (an older version) or where the span is absent (the layer
+is off the path); an error where the step counts disagree."""
+
+SPAN = "cull.mask"
+STEPS = ("train.g_step", "train.r_step")
+
+
+def read(run):
+    if run.trace is None:
+        return None
+    try:
+        from oakink2_tamf_tpu_torch.runtime.profiler import report
+    except ImportError:
+        return None
+    rep = report()
+    n = sum(rep.spans[s].n for s in STEPS if s in rep.spans)
+    if n != run.traced["steps"] or n == 0:
+        raise RuntimeError(f"{n} step spans in the program's record, {run.traced['steps']} traced steps")
+    t = rep.spans.get(SPAN)
+    return 1e3 * t.device_s / n if t is not None else None

@@ -3930,10 +3930,10 @@ def g_option_main_path(db) -> dict:
         require(counts == {"nn_signed": 3, "dist_loss": 3}, f"G options ({label}): launches {counts} in 3 steps")
         if label in ("float32", "bf16"):  # where a full-width step's device time goes
             with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
-                with P.trace(tmp) as tr:
-                    for _ in range(2):
-                        step(state, db, generator=gen)
-                trace_summary(tr.path, f"G step trace ({label}, fused, 2 steps)")
+                tr = P.DeviceTrace(tmp).start()
+                for _ in range(2):
+                    step(state, db, generator=gen)
+                trace_summary(tr.stop(), f"G step trace ({label}, fused, 2 steps)")
         del state, step
         torch.cuda.empty_cache()
     return out

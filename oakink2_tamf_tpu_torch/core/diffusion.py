@@ -42,6 +42,8 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from ..runtime import profiler as P
+
 
 class ModelMeanType(enum.Enum):
     PREVIOUS_X = "previous_x"
@@ -427,8 +429,9 @@ def _p_sample_steps(model_fn, sched, img, t_start, *, device, generator, step_no
     """Yield each ancestral step's {"sample", "pred_xstart"}, t = t_start-1 .. 0."""
     _check_shape("step_noise", step_noise, (t_start,) + tuple(img.shape))
     for i, t_scalar in enumerate(range(t_start - 1, -1, -1)):
-        z = draw(img.shape, generator, device) if step_noise is None else step_noise[i].to(device)
-        out = p_sample(model_fn, sched, img, _full_t(t_scalar, img.shape[0], device), z, **step_kw)
+        with P.span("diffusion.step"):
+            z = draw(img.shape, generator, device) if step_noise is None else step_noise[i].to(device)
+            out = p_sample(model_fn, sched, img, _full_t(t_scalar, img.shape[0], device), z, **step_kw)
         img = out["sample"]
         yield out
 
@@ -545,28 +548,29 @@ def ddim_sample_loop(
     _check_shape("step_noise", step_noise, (T,) + tuple(shape))
     img = draw(shape, generator, device) if noise is None else noise.to(device)
     for i, t_scalar in enumerate(range(T - 1, -1, -1)):
-        t = _full_t(t_scalar, shape[0], device)
-        out = p_mean_variance(model_fn, sched, img, t, clip_denoised=clip_denoised, denoised_fn=denoised_fn,
-                              model_mean_type=model_mean_type)
-        if cond_fn is not None:
-            out = condition_score(cond_fn, sched, out, img, t)
-        eps = predict_eps_from_xstart(sched, img, t, out["pred_xstart"])
-        alpha_bar = _extract(sched.alphas_cumprod, t, img.ndim)
-        alpha_bar_prev = _extract(sched.alphas_cumprod_prev, t, img.ndim)
-        sigma = (
-            eta
-            * torch.sqrt((1 - alpha_bar_prev) / (1 - alpha_bar))
-            * torch.sqrt(1 - alpha_bar / alpha_bar_prev)
-        )
-        mean_pred = (
-            out["pred_xstart"] * torch.sqrt(alpha_bar_prev)
-            + torch.sqrt(1 - alpha_bar_prev - sigma**2) * eps
-        )
-        if eta > 0:
-            z = draw(shape, generator, device) if step_noise is None else step_noise[i].to(device)
-            nonzero_mask = (t != 0).to(img.dtype).reshape((-1,) + (1,) * (img.ndim - 1))
-            mean_pred = mean_pred + nonzero_mask * sigma * z
-        img = mean_pred
+        with P.span("diffusion.step"):
+            t = _full_t(t_scalar, shape[0], device)
+            out = p_mean_variance(model_fn, sched, img, t, clip_denoised=clip_denoised, denoised_fn=denoised_fn,
+                                  model_mean_type=model_mean_type)
+            if cond_fn is not None:
+                out = condition_score(cond_fn, sched, out, img, t)
+            eps = predict_eps_from_xstart(sched, img, t, out["pred_xstart"])
+            alpha_bar = _extract(sched.alphas_cumprod, t, img.ndim)
+            alpha_bar_prev = _extract(sched.alphas_cumprod_prev, t, img.ndim)
+            sigma = (
+                eta
+                * torch.sqrt((1 - alpha_bar_prev) / (1 - alpha_bar))
+                * torch.sqrt(1 - alpha_bar / alpha_bar_prev)
+            )
+            mean_pred = (
+                out["pred_xstart"] * torch.sqrt(alpha_bar_prev)
+                + torch.sqrt(1 - alpha_bar_prev - sigma**2) * eps
+            )
+            if eta > 0:
+                z = draw(shape, generator, device) if step_noise is None else step_noise[i].to(device)
+                nonzero_mask = (t != 0).to(img.dtype).reshape((-1,) + (1,) * (img.ndim - 1))
+                mean_pred = mean_pred + nonzero_mask * sigma * z
+            img = mean_pred
     return img
 
 
@@ -608,30 +612,31 @@ def plms_sample_loop(
 
     eps_buf: list[torch.Tensor] = []  # earlier eps, newest first (at most 3)
     for t_scalar in range(sched.num_timesteps - 1, -1, -1):
-        t = _full_t(t_scalar, shape[0], device)
-        t_next = t - 1
-        e0, pred_x0 = get_eps_x0(img, t)
-        ab_next = ab_next_of(t_next)
-        if order > 1 and not eps_buf:
-            mean_pred = pred_x0 * torch.sqrt(ab_next) + torch.sqrt(1 - ab_next) * e0
-            eps_2, _ = get_eps_x0(mean_pred, torch.clamp_min(t_next, 0))
-            eps_prime = (e0 + eps_2) / 2.0
-        else:
-            eff_order = min(len(eps_buf), order - 1)
-            if eff_order == 0:
-                eps_prime = e0
-            elif eff_order == 1:
-                eps_prime = (3 * e0 - eps_buf[0]) / 2
-            elif eff_order == 2:
-                eps_prime = (23 * e0 - 16 * eps_buf[0] + 5 * eps_buf[1]) / 12
+        with P.span("diffusion.step"):
+            t = _full_t(t_scalar, shape[0], device)
+            t_next = t - 1
+            e0, pred_x0 = get_eps_x0(img, t)
+            ab_next = ab_next_of(t_next)
+            if order > 1 and not eps_buf:
+                mean_pred = pred_x0 * torch.sqrt(ab_next) + torch.sqrt(1 - ab_next) * e0
+                eps_2, _ = get_eps_x0(mean_pred, torch.clamp_min(t_next, 0))
+                eps_prime = (e0 + eps_2) / 2.0
             else:
-                eps_prime = (55 * e0 - 59 * eps_buf[0] + 37 * eps_buf[1] - 9 * eps_buf[2]) / 24
-        # the deterministic DDIM transfer with eps_prime
-        x0 = predict_xstart_from_eps(sched, img, t, eps_prime)
-        img_next = x0 * torch.sqrt(ab_next) + torch.sqrt(1 - ab_next) * eps_prime
-        nonzero = (t != 0).to(img.dtype).reshape((-1,) + (1,) * (ndim - 1))
-        img = img_next * nonzero + pred_x0 * (1 - nonzero)
-        eps_buf = [e0] + eps_buf[:2]
+                eff_order = min(len(eps_buf), order - 1)
+                if eff_order == 0:
+                    eps_prime = e0
+                elif eff_order == 1:
+                    eps_prime = (3 * e0 - eps_buf[0]) / 2
+                elif eff_order == 2:
+                    eps_prime = (23 * e0 - 16 * eps_buf[0] + 5 * eps_buf[1]) / 12
+                else:
+                    eps_prime = (55 * e0 - 59 * eps_buf[0] + 37 * eps_buf[1] - 9 * eps_buf[2]) / 24
+            # the deterministic DDIM transfer with eps_prime
+            x0 = predict_xstart_from_eps(sched, img, t, eps_prime)
+            img_next = x0 * torch.sqrt(ab_next) + torch.sqrt(1 - ab_next) * eps_prime
+            nonzero = (t != 0).to(img.dtype).reshape((-1,) + (1,) * (ndim - 1))
+            img = img_next * nonzero + pred_x0 * (1 - nonzero)
+            eps_buf = [e0] + eps_buf[:2]
     return img
 
 
@@ -703,29 +708,30 @@ def p_sample_loop_parallel(
     rows = (W * bs,) + tuple(shape[1:])
     s = sweeps = 0
     while s < T:
-        ts_win = torch.clamp(T - 1 - (s + steps), 0, T - 1)
-        t_rows = ts_win.repeat_interleave(bs)
-        x = buf[:W].reshape(rows)
-        out = p_mean_variance(model_fn, sched, x, t_rows, clip_denoised=clip_denoised,
-                              denoised_fn=denoised_fn, model_mean_type=model_mean_type,
-                              model_var_type=model_var_type)
-        mean = out["mean"]
-        if cond_fn is not None:
-            mean = condition_mean(cond_fn, sched, out, x, t_rows)
-        z = torch.stack([z_of(max(T - 1 - s - j, 0)) for j in range(W)]).reshape(rows)
-        nz = (t_rows > 0).to(torch.float32).reshape((-1,) + (1,) * (len(shape) - 1))
-        y = (mean + nz * torch.exp(0.5 * out["log_variance"]) * z).reshape(buf[:W].shape)
-        new_vals = buf[0] + torch.cumsum(y - buf[:W], dim=0)  # positions s+1 .. s+W
-        drift = torch.square(new_vals - buf[1:]).reshape(W, bs, -1).mean(-1).amax(-1)
-        if batch_max is not None:
-            drift = batch_max(drift)
-        ok = drift <= tol2 * sched.posterior_variance[ts_win]
-        m = min(1 + int(torch.cumprod(ok[1:].to(torch.int32), 0).sum()), T - s)
-        buf = torch.cat([buf[:1], new_vals])[torch.clamp(fill + m, max=W)]
-        for t_done in range(T - 1 - s, T - 1 - s - m, -1):  # noise no step needs again
-            z_by_t.pop(t_done, None)
-        s += m
-        sweeps += 1
+        with P.span("diffusion.sweep"):
+            ts_win = torch.clamp(T - 1 - (s + steps), 0, T - 1)
+            t_rows = ts_win.repeat_interleave(bs)
+            x = buf[:W].reshape(rows)
+            out = p_mean_variance(model_fn, sched, x, t_rows, clip_denoised=clip_denoised,
+                                  denoised_fn=denoised_fn, model_mean_type=model_mean_type,
+                                  model_var_type=model_var_type)
+            mean = out["mean"]
+            if cond_fn is not None:
+                mean = condition_mean(cond_fn, sched, out, x, t_rows)
+            z = torch.stack([z_of(max(T - 1 - s - j, 0)) for j in range(W)]).reshape(rows)
+            nz = (t_rows > 0).to(torch.float32).reshape((-1,) + (1,) * (len(shape) - 1))
+            y = (mean + nz * torch.exp(0.5 * out["log_variance"]) * z).reshape(buf[:W].shape)
+            new_vals = buf[0] + torch.cumsum(y - buf[:W], dim=0)  # positions s+1 .. s+W
+            drift = torch.square(new_vals - buf[1:]).reshape(W, bs, -1).mean(-1).amax(-1)
+            if batch_max is not None:
+                drift = batch_max(drift)
+            ok = drift <= tol2 * sched.posterior_variance[ts_win]
+            m = min(1 + int(torch.cumprod(ok[1:].to(torch.int32), 0).sum()), T - s)
+            buf = torch.cat([buf[:1], new_vals])[torch.clamp(fill + m, max=W)]
+            for t_done in range(T - 1 - s, T - 1 - s - m, -1):  # noise no step needs again
+                z_by_t.pop(t_done, None)
+            s += m
+            sweeps += 1
     if return_info:
         return buf[0], {"n_sweeps": sweeps, "n_model_evals": sweeps * W}
     return buf[0]

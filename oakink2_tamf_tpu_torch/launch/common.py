@@ -19,6 +19,7 @@ import argparse
 import logging
 import os
 import sys
+import time
 from typing import Any
 
 import numpy as np
@@ -31,6 +32,7 @@ from ..data.synthetic import SyntheticSegments
 from ..models.clip_text import FrozenClipText
 from ..parallel import mesh
 from ..runtime import logging as RL
+from ..runtime import profiler as P
 from ..runtime.ckpt import RunDir, is_jax_checkpoint, read_model_state_dict
 from ..runtime.logging import MetricWriter
 from ..runtime.config import ConfigRegistry, sync_global_timestamp
@@ -312,5 +314,16 @@ DEVICE_BATCH_KEYS = (
 
 def device_batch(batch: dict[str, Any], device: torch.device) -> dict[str, torch.Tensor]:
     """The array keys of a collated batch as tensors on `device`."""
-    return {k: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v).to(device)
-            for k, v in batch.items() if k in DEVICE_BATCH_KEYS}
+    with P.span("batch.h2d", device=True):
+        return {k: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v).to(device)
+                for k, v in batch.items() if k in DEVICE_BATCH_KEYS}
+
+
+def epoch_rate(steps: int, rows_per_step: int, t_epoch: float, device) -> tuple[float, float]:
+    """(seconds, rows per second) of an epoch of `steps` steps begun at
+    `t_epoch` (time.time()), read after one synchronise of a CUDA device, so
+    that the rate counts the device's work and not only its enqueue."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+    seconds = time.time() - t_epoch
+    return seconds, steps * rows_per_step / seconds

@@ -39,7 +39,6 @@ from ..models.encoder import COND_KEYS, EncoderConfig, SegmentEncoder
 from ..parallel import mesh
 from ..parallel import train as PT
 from ..runtime.ckpt import load_checkpoint, save_train_state
-from ..runtime.profiler import StepTimer
 from ..utils.seeding import setup_seed
 from . import common, param
 
@@ -151,23 +150,21 @@ def main(argv=None, toolkit=None) -> PT.TrainState:
     num_epoch = int(train_cfg.get("num_epoch", 400))
     record_freq = int(train_cfg.get("record_freq", 20))
     batch_size = int(train_cfg.get("batch_size", 64))
-    timer = StepTimer()
     global_step = 0
     for epoch_id in range(num_epoch):
         loader.set_epoch(epoch_id)
-        t_epoch = time.time()
+        t_epoch, epoch_start = time.time(), global_step
         metrics: dict[str, torch.Tensor] = {}
         for batch in loader:
             metrics = step_fn(state, common.device_batch(batch, device))
             global_step += 1
-            timer.tick()
             if global_step % 50 == 0:
                 writer.add_scalars({k: float(v) for k, v in metrics.items()}, global_step)
+        seconds, rate = common.epoch_rate(global_step - epoch_start, W * batch_size, t_epoch, device)
         _logger.info(
             "train epoch %04d | ce %.4f acc %.3f | %.1fs | %.1f samples/s", epoch_id,
             float(metrics["ce"]) if metrics else float("nan"),
-            float(metrics["acc"]) if metrics else float("nan"),
-            time.time() - t_epoch, timer.throughput(W * batch_size),
+            float(metrics["acc"]) if metrics else float("nan"), seconds, rate,
         )
         if coordinator and run_dir.commit and (epoch_id % record_freq == 0 or epoch_id == num_epoch - 1):
             path = save_train_state(run_dir.sub("save"), epoch_id, state)

@@ -38,7 +38,7 @@ from ..models.refine_r import stack_mano_models
 from ..parallel import mesh
 from ..parallel import train as PT
 from ..runtime.ckpt import load_checkpoint, save_train_state
-from ..runtime.profiler import DeviceTrace, StepTimer
+from ..runtime.profiler import DeviceTrace
 from ..utils.seeding import setup_seed
 from . import common, param
 
@@ -209,12 +209,11 @@ def main(argv=None) -> PT.TrainState:
     batch_size = int(train_cfg.get("batch_size", 64))
     profile_dir = (runtime.get("profile_dir") or os.environ.get("TAMF_PROFILE_DIR")) if coordinator else None
     profile = None
-    timer = StepTimer()
     global_step = 0
     try:
         for epoch_id in range(num_epoch):
             train_loader.set_epoch(epoch_id)
-            t_epoch = time.time()
+            t_epoch, epoch_start = time.time(), global_step
             last_metrics: dict[str, float] = {}
             metrics = {}
             for batch in train_loader:
@@ -226,7 +225,6 @@ def main(argv=None) -> PT.TrainState:
                     profile = DeviceTrace(profile_dir, device).start()
                 metrics = step_fn(state, db, generator=generator)
                 global_step += 1
-                timer.tick()
                 if profile is not None and global_step == PROFILE_SPAN[1]:
                     _logger.info("profiler trace (steps %d-%d) -> %s", PROFILE_SPAN[0] + 1, PROFILE_SPAN[1],
                                  profile.stop())
@@ -236,12 +234,12 @@ def main(argv=None) -> PT.TrainState:
                 if global_step % 50 == 0:
                     last_metrics = _scalars(metrics)
                     writer.add_scalars(last_metrics, global_step)
+            seconds, rate = common.epoch_rate(global_step - epoch_start, W * batch_size, t_epoch, device)
             if not last_metrics and metrics:
                 last_metrics = _scalars(metrics)
             _logger.info(
                 "train epoch %04d conclude | loss: %f | %.1fs | %.1f samples/s",
-                epoch_id, last_metrics.get("loss", float("nan")), time.time() - t_epoch,
-                timer.throughput(W * batch_size),
+                epoch_id, last_metrics.get("loss", float("nan")), seconds, rate,
             )
             if coordinator and run_dir.commit and (epoch_id % record_freq == 0 or epoch_id == num_epoch - 1):
                 path = save_train_state(run_dir.sub("save"), epoch_id, state)

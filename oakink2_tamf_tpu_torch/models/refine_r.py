@@ -19,6 +19,7 @@ import torch.nn as nn
 from ..core import geometry as G
 from ..core import mano as M
 from ..core import transforms as T
+from ..runtime import profiler as P
 from .trunk import (
     HandShapeProcess,
     InputProcess,
@@ -123,15 +124,17 @@ def batch_recover_mano(
 
     Both sides run on every sample and the sample's side is selected, as the
     JAX package does for the normals (static per-side faces)."""
-    rh = (hand_side == 0)[:, None, None, None]
-    per_side = [M.recover_mano_from_pose_repr(mano_stack.side(s), pose_repr, shape) for s in range(2)]
-    verts = torch.where(rh, per_side[0][0], per_side[1][0])
-    joints = torch.where(rh, per_side[0][1], per_side[1][1])
-    normals = torch.where(
-        rh,
-        G.vertex_normals(verts, mano_stack.faces[0]),
-        G.vertex_normals(verts, mano_stack.faces[1]),
-    )
+    with P.span("mano.recover", device=True):
+        rh = (hand_side == 0)[:, None, None, None]
+        per_side = [M.recover_mano_from_pose_repr(mano_stack.side(s), pose_repr, shape) for s in range(2)]
+        verts = torch.where(rh, per_side[0][0], per_side[1][0])
+        joints = torch.where(rh, per_side[0][1], per_side[1][1])
+        with P.span("mano.normals", device=True):
+            normals = torch.where(
+                rh,
+                G.vertex_normals(verts, mano_stack.faces[0]),
+                G.vertex_normals(verts, mano_stack.faces[1]),
+            )
     return verts, joints, normals
 
 
@@ -219,7 +222,7 @@ def target_geometry(
     the chamfer pass is skipped and only MANO runs. `frame_mask` is the
     loss-side cull hint: culled frames come out BIG, and the loss zeroes
     them."""
-    with torch.no_grad():
+    with torch.no_grad(), P.span("r.target_geometry", device=True):
         t_verts, t_joints, t_normals = batch_recover_mano(
             mano_stack, batch["pose_repr"], batch["shape"], batch["hand_side"]
         )
@@ -252,16 +255,17 @@ def sample_geometry(
     the reference's closed form instead: a zero-padded frame collapses every
     object cloud to the origin, so its h2o is ||v_i|| of the hand at frame
     L-1. Correct only under the zero-padding contract of data/collate.py."""
-    s_verts, s_joints, s_normals = batch_recover_mano(
-        mano_stack, batch["sample_pose_repr"], batch["shape"], batch["hand_side"]
-    )
-    s_h2o = multi_object_h2o_dist(
-        s_verts, batch["obj_traj"], batch["obj_points"], batch["obj_mask"],
-        x_perm=mano_stack.template_perm, frame_mask=frame_mask, backend=backend, chunk=chunk,
-    )
-    if frame_mask is not None:
-        pad_h2o = torch.linalg.vector_norm(s_verts[:, -1:], dim=-1)  # [bs, 1, 778]
-        s_h2o = torch.where((frame_mask > 0)[:, :, None], s_h2o, pad_h2o)
+    with P.span("r.sample_geometry", device=True):
+        s_verts, s_joints, s_normals = batch_recover_mano(
+            mano_stack, batch["sample_pose_repr"], batch["shape"], batch["hand_side"]
+        )
+        s_h2o = multi_object_h2o_dist(
+            s_verts, batch["obj_traj"], batch["obj_points"], batch["obj_mask"],
+            x_perm=mano_stack.template_perm, frame_mask=frame_mask, backend=backend, chunk=chunk,
+        )
+        if frame_mask is not None:
+            pad_h2o = torch.linalg.vector_norm(s_verts[:, -1:], dim=-1)  # [bs, 1, 778]
+            s_h2o = torch.where((frame_mask > 0)[:, :, None], s_h2o, pad_h2o)
     return {
         "sample_hand_verts": s_verts,
         "sample_hand_joints": s_joints,
@@ -294,14 +298,16 @@ def refine_forward(
     cond = {k: batch[k] for k in ("hand_side", "shape", "obj_embedding", "obj_traj", "obj_mask")}
     if sample_geom is None:
         sample_geom = sample_geometry(mano_stack, batch, frame_mask=loss_frame_mask, backend=backend, chunk=chunk)
-    output = net(batch["sample_pose_repr"], sample_geom["sample_h2o_dist"], cond)
-    r_verts, r_joints, r_normals = batch_recover_mano(
-        mano_stack, output, batch["shape"], batch["hand_side"]
-    )
-    r_h2o = multi_object_h2o_dist(
-        r_verts, batch["obj_traj"], batch["obj_points"], batch["obj_mask"],
-        x_perm=mano_stack.template_perm, frame_mask=loss_frame_mask, backend=backend, chunk=chunk,
-    )
+    with P.span("r.net", device=True):
+        output = net(batch["sample_pose_repr"], sample_geom["sample_h2o_dist"], cond)
+    with P.span("r.refined_geometry", device=True):
+        r_verts, r_joints, r_normals = batch_recover_mano(
+            mano_stack, output, batch["shape"], batch["hand_side"]
+        )
+        r_h2o = multi_object_h2o_dist(
+            r_verts, batch["obj_traj"], batch["obj_points"], batch["obj_mask"],
+            x_perm=mano_stack.template_perm, frame_mask=loss_frame_mask, backend=backend, chunk=chunk,
+        )
     res = {
         "refine_pose_repr": output,
         "refine_hand_verts": r_verts,

@@ -48,6 +48,7 @@ import ctypes
 
 import torch
 
+from ..runtime import profiler as P
 from . import chamfer_nn as NN
 from ._build import Kernel
 
@@ -124,31 +125,35 @@ def cull_mask(
     T = ceil(P2/tile). Bounds only: exactness never depends on it, but the
     centroid-to-point products must be full fp32 (no TF32) so that the upper
     bound never undercuts a true minimum."""
-    F, P1, _ = x.shape
-    G, P2, _ = y.shape
-    L = y_group
-    T = _round_up(P2, tile) // tile
-    R = _round_up(P1, REGION_ROWS) // REGION_ROWS
+    with P.span("cull.mask", device=True):
+        F, P1, _ = x.shape
+        G, P2, _ = y.shape
+        L = y_group
+        T = _round_up(P2, tile) // tile
+        R = _round_up(P1, REGION_ROWS) // REGION_ROWS
 
-    # exact centroid-to-point distances per tile, centred on the group y-mean
-    cg, rr, y = region_stats(x, y)
-    d_tile = torch.empty((G, L * R, T), dtype=torch.float32, device=x.device)
-    gs = max(1, _MASK_CHUNK_ELEMS // max(1, L * R * T * tile))
-    for g0 in range(0, G, gs):
-        d2 = centroid_d2(cg[g0 : g0 + gs], y[g0 : g0 + gs],
-                         None if y_valid is None else y_valid[g0 : g0 + gs])  # [g, L*R, P2]
-        d2 = torch.nn.functional.pad(d2, (0, T * tile - P2), value=torch.inf)
-        d_tile[g0 : g0 + gs] = torch.sqrt(
-            torch.clamp_min(d2.reshape(d2.shape[0], L * R, T, tile).amin(dim=-1), 0.0)
-        )
-    d_tile = d_tile.reshape(F, R, T)
-    dmin = d_tile.amin(dim=-1)  # [F, R]
-    run = d_tile - rr[:, :, None] <= (dmin + rr)[:, :, None] + 1e-3
-    # inf <= inf holds: cull all-invalid clouds outright (their rows give BIG)
-    run = run & torch.isfinite(d_tile)
-    if x_valid is not None:
-        run = run & x_valid.to(torch.bool)[:, None, None]
-    return run.to(torch.int32)
+        # exact centroid-to-point distances per tile, centred on the group y-mean
+        cg, rr, y = region_stats(x, y)
+        d_tile = torch.empty((G, L * R, T), dtype=torch.float32, device=x.device)
+        gs = max(1, _MASK_CHUNK_ELEMS // max(1, L * R * T * tile))
+        for g0 in range(0, G, gs):
+            d2 = centroid_d2(cg[g0 : g0 + gs], y[g0 : g0 + gs],
+                             None if y_valid is None else y_valid[g0 : g0 + gs])  # [g, L*R, P2]
+            d2 = torch.nn.functional.pad(d2, (0, T * tile - P2), value=torch.inf)
+            d_tile[g0 : g0 + gs] = torch.sqrt(
+                torch.clamp_min(d2.reshape(d2.shape[0], L * R, T, tile).amin(dim=-1), 0.0)
+            )
+        d_tile = d_tile.reshape(F, R, T)
+        dmin = d_tile.amin(dim=-1)  # [F, R]
+        run = d_tile - rr[:, :, None] <= (dmin + rr)[:, :, None] + 1e-3
+        # inf <= inf holds: cull all-invalid clouds outright (their rows give BIG)
+        run = run & torch.isfinite(d_tile)
+        if x_valid is not None:
+            run = run & x_valid.to(torch.bool)[:, None, None]
+        if P.recording():
+            P.count("cull.blocks_kept", run)
+            P.count("cull.blocks_live", F * R * T if x_valid is None else x_valid.to(torch.bool).sum() * (R * T))
+        return run.to(torch.int32)
 
 
 def _culled_nearest(x, y4, ctr, mask, y_group: int, tile: int):

@@ -44,6 +44,7 @@ from ..core import mano as M
 from ..models import losses as LL
 from ..models.encoder import COND_KEYS as ENCODER_COND_KEYS
 from ..models.refine_r import refine_forward, sample_geometry, target_geometry
+from ..runtime import profiler as P
 from . import mesh
 
 # ---------------------------------------------------------------------------
@@ -225,6 +226,10 @@ def make_g_train_step(
     def step_fn(state: TrainState, batch: dict[str, Any], *,
                 generator: torch.Generator | None = None,
                 noise: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
+        with P.span("train.g_step", request=state.step):
+            return _g_step(state, batch, generator, noise)
+
+    def _g_step(state, batch, generator, noise):
         model = state.model
         model.train()
         x_start = batch["pose_repr"]
@@ -244,29 +249,33 @@ def make_g_train_step(
 
         gt_geom = None
         if use_extra:  # batch-only: never differentiated
-            with torch.no_grad():
+            with torch.no_grad(), P.span("g.gt_geometry", device=True):
                 gt_geom = LL.extra_loss_gt_geometry(mano_stack, batch, with_chamfer=with_chamfer)
 
         state.optimizer.zero_grad()
-        mse, aux = D.training_losses(
-            lambda x, tt: model(x, tt, cond), sched, x_start, t, batch["mask"],
-            noise=noise, generator=generator,
-        )
-        diffusion_loss = torch.mean(mse * weights)
+        with P.span("g.trunk_loss", device=True):
+            mse, aux = D.training_losses(
+                lambda x, tt: model(x, tt, cond), sched, x_start, t, batch["mask"],
+                noise=noise, generator=generator,
+            )
+            diffusion_loss = torch.mean(mse * weights)
         total = diffusion_loss
         metrics = {"diffusion_loss": diffusion_loss, "t_mean": t.to(torch.float32).mean(),
                    "per_sample_mse": mse, "per_sample_t": t}
         if use_extra:
-            extra, terms = LL.interaction_segment_extra_loss(
-                mano_stack, assets, extra_cfg, aux["model_output"], batch,
-                chunk=chunk, gt_geom=gt_geom, dist_impl=dist_impl,
-            )
+            with P.span("g.extra_loss", device=True):
+                extra, terms = LL.interaction_segment_extra_loss(
+                    mano_stack, assets, extra_cfg, aux["model_output"], batch,
+                    chunk=chunk, gt_geom=gt_geom, dist_impl=dist_impl,
+                )
             # a batch sum: W times its share, so the ranks' mean is the global sum
             total = total + (extra * W if W > 1 else extra)
             metrics.update({f"extra/{k}": v for k, v in terms.items()})
         metrics["loss"] = total
-        total.backward()
-        _step(state)
+        with P.span("train.backward", device=True):
+            total.backward()
+        with P.span("train.optimizer", device=True):
+            _step(state)
         metrics = {k: v.detach() for k, v in metrics.items()}
         if mesh.is_live():
             metrics = mesh.reduce_metrics(metrics, {k: "sum" for k in metrics if k.startswith("extra/")})
@@ -303,22 +312,26 @@ def make_r_train_step(
     `chunk` (train.chunk) is the xla route's tile of object points."""
 
     def step_fn(state: TrainState, batch: dict[str, Any]) -> dict[str, torch.Tensor]:
-        net = state.model
-        net.train()
-        mask = batch["mask"]
-        with torch.no_grad():
-            tgt = target_geometry(mano_stack, batch, backend=backend, frame_mask=mask, chunk=chunk)
-            # the padded-frame closed form of the network input (valid under
-            # the zero-padding collate and adaptor contract)
-            sg = sample_geometry(mano_stack, batch, frame_mask=mask, backend=backend, chunk=chunk)
-        state.optimizer.zero_grad()
-        out = refine_forward(net, mano_stack, batch, with_target=False, sample_geom=sg,
-                             backend=backend, loss_frame_mask=mask, chunk=chunk)
-        out.update(tgt)
-        loss, terms = LL.segment_refine_loss(assets, loss_cfg, out, batch)
-        loss.backward()
-        _step(state)
-        return mesh.reduce_metrics({k: v.detach() for k, v in terms.items()}, {})  # batch means
+        with P.span("train.r_step", request=state.step):
+            net = state.model
+            net.train()
+            mask = batch["mask"]
+            with torch.no_grad():
+                tgt = target_geometry(mano_stack, batch, backend=backend, frame_mask=mask, chunk=chunk)
+                # the padded-frame closed form of the network input (valid under
+                # the zero-padding collate and adaptor contract)
+                sg = sample_geometry(mano_stack, batch, frame_mask=mask, backend=backend, chunk=chunk)
+            state.optimizer.zero_grad()
+            out = refine_forward(net, mano_stack, batch, with_target=False, sample_geom=sg,
+                                 backend=backend, loss_frame_mask=mask, chunk=chunk)
+            out.update(tgt)
+            with P.span("r.loss", device=True):
+                loss, terms = LL.segment_refine_loss(assets, loss_cfg, out, batch)
+            with P.span("train.backward", device=True):
+                loss.backward()
+            with P.span("train.optimizer", device=True):
+                _step(state)
+            return mesh.reduce_metrics({k: v.detach() for k, v in terms.items()}, {})  # batch means
 
     return step_fn
 

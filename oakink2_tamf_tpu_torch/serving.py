@@ -32,6 +32,7 @@ from .models.clip_text import FrozenClipText
 from .models.mdm_g import InteractionSegmentMDM, MDMConfig
 from .models.refine_r import RefineConfig, SegmentRefineNet, refine_forward, stack_mano_models
 from .parallel.train import g_cond_from_batch, g_model_fn
+from .runtime import profiler as P
 from .runtime.ckpt import load_model_weights
 
 BATCH_KEYS = (
@@ -55,6 +56,7 @@ class TamfPipeline:
     sampler: str = "ddpm"
     parallel_window: int = 64
     parallel_tol: float = 1e-2
+    calls: int = dataclasses.field(default=0, init=False)  # generate calls made: the next call's request id
 
     def __post_init__(self):
         if self.sampler not in D.SAMPLERS:
@@ -106,18 +108,20 @@ class TamfPipeline:
 
     def _run(self, batch: dict[str, torch.Tensor], generator, noise):
         bs, L = batch["pose_repr"].shape[:2]
-        sample = D.sample_loop(
-            self.sampler, g_model_fn(self.g_model, g_cond_from_batch(batch)), self.sched, (bs, L, 99),
-            device=self.device, generator=generator, noise=noise,
-            parallel_window=self.parallel_window, parallel_tol=self.parallel_tol,
-        )
+        with P.span("serve.g_chain"):
+            sample = D.sample_loop(
+                self.sampler, g_model_fn(self.g_model, g_cond_from_batch(batch)), self.sched, (bs, L, 99),
+                device=self.device, generator=generator, noise=noise,
+                parallel_window=self.parallel_window, parallel_tol=self.parallel_tol,
+            )
         b2 = dict(batch)
         # R sees G's sample zero-padded past each true length, as the JAX
         # package's serving does (oakink2_tamf_tpu/serving.py:87); the original
         # TaMF chain feeds R the raw padded sample instead
         b2["sample_pose_repr"] = sample * batch["mask"][:, :, None]
-        out = refine_forward(self.refine_net, self.mano_stack, b2, with_target=False,
-                             loss_frame_mask=batch["mask"])
+        with P.span("serve.refine", device=True):
+            out = refine_forward(self.refine_net, self.mano_stack, b2, with_target=False,
+                                 loss_frame_mask=batch["mask"])
         return {
             "refine_pose_repr": out["refine_pose_repr"],
             "refine_hand_verts": out["refine_hand_verts"],
@@ -126,10 +130,11 @@ class TamfPipeline:
         }
 
     def _device_batch(self, chunk: Sequence[dict[str, Any]]) -> dict[str, torch.Tensor]:
-        batch = self._collate(chunk)
-        db = {k: torch.as_tensor(batch[k]).to(self.device) for k in BATCH_KEYS}
-        db["hand_side"] = db["hand_side"].long()
-        db["text_emb"] = self.clip.encode_text(batch["text"])
+        with P.span("serve.collate_h2d"):
+            batch = self._collate(chunk)
+            db = {k: torch.as_tensor(batch[k]).to(self.device) for k in BATCH_KEYS}
+            db["hand_side"] = db["hand_side"].long()
+            db["text_emb"] = self.clip.encode_text(batch["text"])
         return db
 
     @torch.inference_mode()
@@ -151,17 +156,20 @@ class TamfPipeline:
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         results: list[dict[str, np.ndarray]] = []
-        for ci, start in enumerate(range(0, len(segments), self.batch_size)):
-            chunk = list(segments[start : start + self.batch_size])
-            n_real = len(chunk)
-            chunk += [chunk[-1]] * (self.batch_size - n_real)  # pad to the batch shape
-            out = self._run(self._device_batch(chunk), generator, noise[ci] if noise is not None else None)
-            out = {k: v.float().cpu().numpy() for k, v in out.items()}
-            for i in range(n_real):
-                results.append({
-                    "refine_pose_repr": out["refine_pose_repr"][i],
-                    "verts": out["refine_hand_verts"][i],
-                    "joints": out["refine_hand_joints"][i],
-                    "g_sample_pose_repr": out["sample_pose_repr"][i],
-                })
+        call, self.calls = self.calls, self.calls + 1
+        with P.span("serve.generate", request=call):
+            for ci, start in enumerate(range(0, len(segments), self.batch_size)):
+                chunk = list(segments[start : start + self.batch_size])
+                n_real = len(chunk)
+                chunk += [chunk[-1]] * (self.batch_size - n_real)  # pad to the batch shape
+                out = self._run(self._device_batch(chunk), generator, noise[ci] if noise is not None else None)
+                with P.span("serve.d2h"):
+                    out = {k: v.float().cpu().numpy() for k, v in out.items()}
+                for i in range(n_real):
+                    results.append({
+                        "refine_pose_repr": out["refine_pose_repr"][i],
+                        "verts": out["refine_hand_verts"][i],
+                        "joints": out["refine_hand_joints"][i],
+                        "g_sample_pose_repr": out["sample_pose_repr"][i],
+                    })
         return results

@@ -423,7 +423,7 @@ def test_train_g_profile_trace(tmp_path, monkeypatch, caplog):
     keep the test short): TAMF_PROFILE_DIR traces a 4-step run, stopping
     after step 3; runtime.profile_dir on a 2-step run, which ends inside
     the span, still writes its trace. Each trace parses and holds the
-    step's operators."""
+    step's operators and the program's spans (runtime/profiler.span)."""
     assert train_g.PROFILE_SPAN == (10, 20)
     monkeypatch.setattr(train_g, "PROFILE_SPAN", (1, 3))
     monkeypatch.chdir(tmp_path)
@@ -441,3 +441,5 @@ def test_train_g_profile_trace(tmp_path, monkeypatch, caplog):
         (name,) = os.listdir(tmp_path / sub)
         events = _trace_events(tmp_path / sub / name)
         assert any(e.get("name", "").startswith("aten::") for e in events), sub
+        names = {e.get("name") for e in events}
+        assert {"train.g_step", "mano.recover"} <= names, sub
