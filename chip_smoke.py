@@ -59,7 +59,10 @@ Phases (any failure exits non-zero and prints no result line):
    on the all-pairs tie scene (copies across cells, an all-invalid middle
    cell, ragged and all-invalid clouds, x_valid=False frames; 778 x 2000
    points, y_group 3 and 1): values, indices and dvec bit-equal to their
-   plain versions, #4 equal to #3 on live frames;
+   plain versions, #4 equal to #3 on live frames; then the h2o cull mask
+   kernel against its plain version at the serving and R shapes (8192
+   points, tile 128): flags equal except within 1e-5 m of the threshold,
+   timed with the plain version, region_stats and cull_mask whole;
 5. cluster kernels (#10 h2o over candidate cells, #11 its backward, #12
    o2h over candidate tiles, #13 its backward) on the R main path's own
    operands (sample hands in the canonical frames of a full-width batch,
@@ -2197,6 +2200,81 @@ def check_nn_edges() -> None:
           f"y_group {L} and 1; {ties} rows whose minimum two points reach; an invalid middle cell, a ragged and an "
           f"all-invalid cloud, x_valid=False frames): values, indices and dvec bit-equal to plain; #4 equal to #3 "
           f"on live frames; in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def mask_margins(cg, rr, yc, yv, tile: int, L: int, blocks):
+    """The float64 margins (dmin + rr + 1e-3) - (d_t - rr) of the given
+    blocks ([n, 3] (frame, region, tile) indices) from the exact distances
+    of the same centred operands, 256 (frame, region) rows at a time."""
+    import torch
+
+    G, P2, _ = yc.shape
+    R = rr.shape[1]
+    T = -(-P2 // tile)
+    out = torch.empty(blocks.shape[0], dtype=torch.float64, device=cg.device)
+    for i in range(0, blocks.shape[0], 256):
+        f, r, t = blocks[i : i + 256].unbind(1)
+        g = f // L
+        c = cg.reshape(-1, 3)[f * R + r].double()
+        d = ((c[:, None] - yc[g].double()) ** 2).sum(-1).sqrt().masked_fill(~yv[g], float("inf"))
+        d = torch.nn.functional.pad(d, (0, T * tile - P2), value=float("inf")).reshape(-1, T, tile).amin(-1)
+        rb = rr[f, r].double()
+        out[i : i + 256] = (d.amin(-1) + rb + 1e-3) - (d.gather(1, t[:, None])[:, 0] - rb)
+    return out
+
+
+def check_mask_kernel() -> dict[str, dict]:
+    """The h2o cull mask kernel (csrc/h2o_cull_mask.cu) against its plain
+    version (chamfer_cull.plain_mask) at the serving shape (10240 frames =
+    64 clouds x 160, 778 rows, 8192 points) and the R training shape (40960
+    = 256 x 160), tile 128, on kernel_inputs (a ragged cloud, an
+    all-invalid cloud, every 7th frame x_valid=False): flags 0/1, 0 on dead
+    frames, equal to the plain version's on every block whose float64
+    margin lies more than 1e-5 m from the threshold (the blocks that differ
+    counted); then timed: the kernel, the plain version, region_stats and
+    cull_mask whole. Bound: 8 flops per (live centroid, valid point) pair,
+    or cg, rr, y, the masks read and the flags written once."""
+    import torch
+
+    from oakink2_tamf_tpu_torch.ops import chamfer_cull as CU
+
+    out = {}
+    tile = CU.DEFAULT_TILE
+    for label, G, seed in (("serving", 64, 11), ("R", TRAIN_CLOUDS, 12)):
+        x, y, yv, xv, L = kernel_inputs(TRAIN_P, G=G, L=TRAIN_L, seed=seed)
+        cg, rr, yc = CU.region_stats(x, y)
+        flags = CU.launch_mask(cg, rr, yc, yv, xv, tile, L)
+        torch.cuda.synchronize()
+        want, plain_ms = cuda_timed(lambda: CU.plain_mask(cg, rr, yc, yv, xv, tile, L))
+        live = xv & yv.any(1).repeat_interleave(L)
+        require(bool(((flags == 0) | (flags == 1)).all()), f"mask kernel ({label}): a flag is not 0 or 1")
+        require(bool((flags[~live] == 0).all()), f"mask kernel ({label}): a dead frame's block runs")
+        differ = (flags != want).nonzero()
+        margin = mask_margins(cg, rr, yc, yv, tile, L, differ)
+        require(bool((margin.abs() <= 1e-5).all()),
+                f"mask kernel ({label}): {int((margin.abs() > 1e-5).sum())} blocks differ from the plain version "
+                f"farther than 1e-5 m from the threshold (margins {margin.tolist()[:8]})")
+        F, R, T = flags.shape
+        pairs = float((yv.sum(1).repeat_interleave(L) * live).sum()) * R
+        n_bytes = (cg.numel() + rr.numel() + yc.numel() + flags.numel()) * 4 + yv.numel() + xv.numel()
+        b, by = bound_ms(n_bytes, pairs)
+        o = dict(
+            kernel=CU.MASK_KERNEL, max_abs_err=int((flags != want).any()), differ=int(differ.shape[0]),
+            shape=[F, x.shape[1], y.shape[1]], plain_ms=plain_ms, library_ms=None, bound_ms=b, bound_by=by,
+            issue_floor_ms=issue_floor_ms(pairs, 7), pairs=pairs, kept_share=float(flags.sum()) / (float(live.sum()) * R * T),
+            ms=cuda_time_ms(lambda: CU.launch_mask(cg, rr, yc, yv, xv, tile, L), reps=20),
+            stats_ms=cuda_time_ms(lambda: CU.region_stats(x, y), reps=5),
+            mask_ms=cuda_time_ms(lambda: CU.cull_mask(x, y, yv, tile, L, xv), reps=5),
+        )
+        print(f"h2o_cull_mask ({label}) F={F} P1={x.shape[1]} P2={y.shape[1]} y_group {L} tile {tile}: "
+              f"{o['differ']} of {flags.numel()} flags differ from the plain version, each within 1e-5 m of the "
+              f"threshold; ms={o['ms']:.4f} bound_ms={b:.4f} ({by}; {pairs:.6g} live pairs) issue floor "
+              f"{o['issue_floor_ms']:.4f} ms; plain_ms={plain_ms:.3f}; region_stats {o['stats_ms']:.3f} ms, "
+              f"cull_mask whole {o['mask_ms']:.3f} ms; kept share of live blocks {o['kept_share']:.4f}", flush=True)
+        out[label] = o
+        del x, y, yv, xv, cg, rr, yc, flags, want, live, differ
+        torch.cuda.empty_cache()
+    return {"h2o_cull_mask": out["R"]}
 
 
 R_KERNELS = ("h2o_nn", "h2o_cull", "h2o_nn_dvec", "h2o_cull_dvec", "h2o_nn_bwd")
@@ -4669,7 +4747,7 @@ def _all_kernels() -> dict:
     from oakink2_tamf_tpu_torch.ops import chamfer_signed as CS
 
     ks = (NN.KERNEL, CU.KERNEL, CS.KERNEL, CS.BWD_KERNEL, CL.KERNEL, NN.DVEC_KERNEL, CU.DVEC_KERNEL, HB.KERNEL,
-          *CC.KERNELS, CL.CULL_KERNEL)
+          *CC.KERNELS, CL.CULL_KERNEL, CU.MASK_KERNEL)
     return {k.name: k for k in ks}
 
 
@@ -5220,7 +5298,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}", flush=True)
 
     kernels = [NN.KERNEL, CU.KERNEL, CS.KERNEL, CS.BWD_KERNEL, CL.KERNEL,
-               NN.DVEC_KERNEL, CU.DVEC_KERNEL, HB.KERNEL, *CC.KERNELS, CL.CULL_KERNEL]
+               NN.DVEC_KERNEL, CU.DVEC_KERNEL, HB.KERNEL, *CC.KERNELS, CL.CULL_KERNEL, CU.MASK_KERNEL]
     t0 = time.perf_counter()
     _build.build_all(kernels)
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
@@ -5228,7 +5306,7 @@ def main() -> int:
         print("\n".join(ln for ln in k.ptxas_log.splitlines() if "Used" in ln or "spill" in ln))
     sass = {}
     for k in (CS.KERNEL, CL.KERNEL, CL.CULL_KERNEL, CC.H2O_KERNEL, CU.KERNEL, CU.DVEC_KERNEL, NN.KERNEL,
-              NN.DVEC_KERNEL, CC.O2H_KERNEL):  # the pair searches' hot loop
+              NN.DVEC_KERNEL, CC.O2H_KERNEL, CU.MASK_KERNEL):  # the pair searches' hot loop
         st = sass[k.name] = sass_inner_loop(k)
         print(f"{k.name} SASS hot loop: {st['instructions']} instructions, {st['fast_path']} without the row "
               f"merge, {st['pairs']} pairs: {st['fast_path'] / max(st['pairs'], 1):.3f} per pair; "
@@ -5257,6 +5335,8 @@ def main() -> int:
     kstats.update(check_r_kernels())
     check_cull_edges()
     check_nn_edges()
+    phase("h2o cull mask kernel")
+    kstats.update(check_mask_kernel())
     phase("cluster kernels")
     kstats.update(check_cluster_kernels())
     check_topk_edges()
@@ -5317,7 +5397,9 @@ def main() -> int:
     phase("train_g profiler trace")
     profile_entry_point()
     phase("R training main path (cull route)")
+    CU.MASK_KERNEL.launches = 0
     _, r_counts, _ = r_train_main_path()
+    mask_counts = {"r_train": CU.MASK_KERNEL.launches}
     torch.cuda.empty_cache()
     phase("R training main path (all-pairs route)")
     _, r_ap_counts, r_ap_step_s = r_train_main_path("all-pairs")
@@ -5336,7 +5418,11 @@ def main() -> int:
     phase("grad_y path")
     gy_counts = grad_y_path()
     phase("serving main path, cull route")
+    CU.MASK_KERNEL.launches = 0
     cull_counts, _ = main_path(8192, "", "h2o_cull", "main path (cull route, 8192 points)")
+    mask_counts["serving"] = CU.MASK_KERNEL.launches
+    require(min(mask_counts.values()) > 0, f"the mask kernel did not launch on a cull route: {mask_counts}")
+    print(f"h2o_cull_mask launches: {mask_counts} (R train main path, serving main path)", flush=True)
     phase("serving main path, all-pairs route")
     nn_counts, _ = main_path(2048, "50", "h2o_nn", "main path (all-pairs route, 2048 points)")
     phase("small sampler parity")
@@ -5382,6 +5468,7 @@ def main() -> int:
     # #4, #6 and #8
     launches = {"h2o_nn": nn_counts["h2o_nn"] + launcher_nn + chain_score_nn + score_nn + ckpt_counts["h2o_nn"],
                 "h2o_cull": cull_counts["h2o_cull"] + chain_cull + ckpt_counts["h2o_cull"],
+                "h2o_cull_mask": mask_counts["r_train"] + mask_counts["serving"],
                 "nn_signed": train_counts["nn_signed"] + ckpt_counts["nn_signed"],
                 "dist_loss": train_counts["dist_loss"] + ckpt_counts["dist_loss"],
                 "dist_loss_cull": fc_counts["dist_loss_cull"],

@@ -1,12 +1,12 @@
 """Bounds-culled exact hand->object nearest distance (h2o): skip mask,
-CUDA kernel, wrapper, plain PyTorch version and launch count.
+CUDA kernels, wrappers, plain PyTorch versions and launch counts.
 
 Replaces oakink2_tamf_tpu/ops/chamfer_cull.py `_cull_fwd_kernel` (:179;
 `_cull_forward(with_dvec=False)` :261, pallas_call at :307, primal
-`_cull_core` :362-365). `cull_mask` is a copy of that module's `_cull_mask`
-formula (plain XLA there, plain PyTorch here; its region statistics,
-`region_stats`, are shared with the loss's region-cull mask in
-ops/chamfer_loss.py): for hand region r of frame f
+`_cull_core` :362-365). `cull_mask` computes that module's `_cull_mask`
+rule (its region statistics, `region_stats`, are shared with the loss's
+region-cull mask in ops/chamfer_loss.py, which keeps its own path): for
+hand region r of frame f
 (128 contiguous rows of the template-permuted hand) with centroid c and
 radius rr, and object tile t, with d_t = min_{j in t} |c - y_j| and
 dmin = min_t d_t, the block runs unless d_t - rr > dmin + rr + 1e-3. A
@@ -29,7 +29,24 @@ list), a finer mask culls more pairs, and the mask costs about the same at
 any tile (the same centroid pass, reduced per tile). chip_smoke.py's tile
 sweep on an NVIDIA H100 80GB HBM3 (700 W), R training shape (40960 frames x
 778 rows x 8192 points): the mask keeps 0.743 of the pairs at tile 2048 and
-0.339 at 128; #3 takes 46.6 and 23.1 ms, the mask 46.7 and 49.1 ms.
+0.339 at 128; #3 takes 46.6 and 23.1 ms, `cull_mask` 3.2 and 3.5 ms.
+
+The mask (`cull_mask`): on a CUDA tensor one hand-written kernel
+(csrc/h2o_cull_mask.cu, `MASK_KERNEL`, its own launch count; it replaces
+no TPU kernel, since `_cull_mask` is plain XLA) writes the [F, R, T] flags
+straight from the region statistics: each thread holds centroids in
+registers against the group's points staged in shared memory, keeps each
+tile's minimum and writes its flags once dmin is known. Its bound is the
+centroid-point distances, 7 instructions per (live centroid, point) pair;
+frames with x_valid False and all-invalid clouds are written 0 unsearched.
+`plain_mask`, the CPU route and the on-card check, builds the [g, L*R, P2]
+field in chunks, about six passes over device memory. At the R shape
+(tile 128, y_group 160, every 7th frame dead) the kernel takes 0.935 ms
+(issue floor 0.419 ms), `plain_mask` 48.7 ms, `region_stats` 2.5 ms of
+`cull_mask`'s 3.4 ms (chip_smoke.check_mask_kernel, same card). The kernel
+forms |c - y| by the direct difference, not centroid_d2's expansion, so a
+flag can differ from the plain version's only within rounding of the
+threshold, which the 1e-3 slack covers; the searches' values cannot move.
 
 `h2o_cull_dvec` (csrc/h2o_cull_dvec.cu, its own kernel and launch count)
 replaces `_cull_dvec_kernel` (:204; `_cull_forward(with_dvec=True)`,
@@ -50,7 +67,7 @@ import torch
 
 from ..runtime import profiler as P
 from . import chamfer_nn as NN
-from ._build import Kernel
+from ._build import Kernel, build_all
 
 REGION_ROWS = 128
 DEFAULT_TILE = 128  # mask tile of the wrappers, in points (module docstring)
@@ -71,6 +88,13 @@ DVEC_KERNEL = Kernel(
     symbol="h2o_cull_dvec_launch",
     argtypes=[_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 )
+MASK_KERNEL = Kernel(
+    "h2o_cull_mask", "h2o_cull_mask.cu",
+    replaces="none (oakink2_tamf_tpu/ops/chamfer_cull.py:84, `_cull_mask`, is plain XLA)",
+    symbol="h2o_cull_mask_launch",
+    argtypes=[_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+)
+MAX_MASK_TILES = 256  # object tiles per cloud that the mask kernel's shared memory holds
 
 
 def _round_up(x: int, m: int) -> int:
@@ -113,6 +137,85 @@ def centroid_d2(c: torch.Tensor, y: torch.Tensor, y_valid: torch.Tensor | None) 
     return d2
 
 
+def plain_mask(cg, rr, y, y_valid, x_valid, tile: int, y_group: int) -> torch.Tensor:
+    """The mask kernel's function in plain PyTorch, on `region_stats`'
+    outputs (cg [G, L*R, 3], rr [F, R], centred y [G, P2, 3]): the formula
+    of the JAX package's `_cull_mask`, flag for flag. It builds the
+    centroid-to-point field [g, L*R, P2] a chunk of groups at a time. The
+    products must be full fp32 (no TF32) so that the bound never undercuts a
+    true minimum."""
+    G, P2, _ = y.shape
+    F, R = rr.shape
+    L = y_group
+    T = _round_up(P2, tile) // tile
+    d_tile = torch.empty((G, L * R, T), dtype=torch.float32, device=y.device)
+    gs = max(1, _MASK_CHUNK_ELEMS // max(1, L * R * T * tile))
+    for g0 in range(0, G, gs):
+        d2 = centroid_d2(cg[g0 : g0 + gs], y[g0 : g0 + gs],
+                         None if y_valid is None else y_valid[g0 : g0 + gs])  # [g, L*R, P2]
+        d2 = torch.nn.functional.pad(d2, (0, T * tile - P2), value=torch.inf)
+        d_tile[g0 : g0 + gs] = torch.sqrt(
+            torch.clamp_min(d2.reshape(d2.shape[0], L * R, T, tile).amin(dim=-1), 0.0)
+        )
+    d_tile = d_tile.reshape(F, R, T)
+    dmin = d_tile.amin(dim=-1)  # [F, R]
+    run = d_tile - rr[:, :, None] <= (dmin + rr)[:, :, None] + 1e-3
+    # inf <= inf holds: cull all-invalid clouds outright (their rows give BIG)
+    run = run & torch.isfinite(d_tile)
+    if x_valid is not None:
+        run = run & x_valid.to(torch.bool)[:, None, None]
+    return run.to(torch.int32)
+
+
+def _check_mask_operands(cg, rr, y, y_valid, x_valid, tile: int, y_group: int) -> None:
+    if tile <= 0 or tile % REGION_ROWS:
+        raise ValueError(f"tile {tile} is not a multiple of {REGION_ROWS} points: the mask kernel walks 128-point cells")
+    named = [("cg", cg, torch.float32), ("rr", rr, torch.float32), ("y", y, torch.float32)]
+    named += [(n, t, torch.bool) for n, t in (("y_valid", y_valid), ("x_valid", x_valid)) if t is not None]
+    for name, t, dt in named:
+        if t.dtype != dt:
+            raise ValueError(f"{name} is {t.dtype}, the mask kernel takes {dt}")
+    for name, t, _ in named:
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, t, _ in named:
+        if not t.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor")
+        if t.device != cg.device:
+            raise ValueError(f"{name} is on {t.device}, cg on {cg.device}")
+    G, P2, _ = y.shape
+    F, R = rr.shape
+    T = _round_up(P2, tile) // tile
+    if (cg.shape != (G, y_group * R, 3) or F != G * y_group
+            or (y_valid is not None and y_valid.shape != (G, P2))
+            or (x_valid is not None and x_valid.shape != (F,))):
+        raise ValueError(f"bad operand shapes cg {tuple(cg.shape)} rr {tuple(rr.shape)} y {tuple(y.shape)} "
+                         f"y_group {y_group}")
+    if T > MAX_MASK_TILES:
+        raise ValueError(f"{T} tiles of {tile} points: the mask kernel holds at most {MAX_MASK_TILES} per cloud")
+    if F * R * T >= 2**31:
+        raise ValueError("too many blocks for one launch")
+
+
+def launch_mask(cg, rr, y, y_valid, x_valid, tile: int, y_group: int) -> torch.Tensor:
+    """Launch the mask kernel on `region_stats`' outputs and the bool masks
+    (None: all valid, all live): flags [F, R, T] int32."""
+    _check_mask_operands(cg, rr, y, y_valid, x_valid, tile, y_group)
+    if MASK_KERNEL._lib is None:  # first use: build the cull route's kernels together, one nvcc each at once
+        build_all((MASK_KERNEL, KERNEL, DVEC_KERNEL))
+    G, P2, _ = y.shape
+    F, R = rr.shape
+    T = _round_up(P2, tile) // tile
+    flags = torch.empty((F, R, T), dtype=torch.int32, device=y.device)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    with torch.cuda.device(y.device):
+        MASK_KERNEL.launch(
+            cg.data_ptr(), rr.data_ptr(), y.data_ptr(), ptr(y_valid), ptr(x_valid), flags.data_ptr(),
+            G, P2, R, y_group * R, T, tile, torch.cuda.current_stream().cuda_stream,
+        )
+    return flags
+
+
 def cull_mask(
     x: torch.Tensor,  # [F, P1, 3]
     y: torch.Tensor,  # [G, P2, 3]
@@ -122,38 +225,25 @@ def cull_mask(
     x_valid: torch.Tensor | None = None,  # [F] bool
 ) -> torch.Tensor:
     """Compute-flag mask [F, R, T] int32 (1 = run the block); R = ceil(P1/128),
-    T = ceil(P2/tile). Bounds only: exactness never depends on it, but the
-    centroid-to-point products must be full fp32 (no TF32) so that the upper
-    bound never undercuts a true minimum."""
+    T = ceil(P2/tile). Bounds only: exactness never depends on it. On a CUDA
+    tensor the mask kernel writes it (`tile` a multiple of 128 points), on a
+    CPU tensor `plain_mask`."""
     with P.span("cull.mask", device=True):
         F, P1, _ = x.shape
-        G, P2, _ = y.shape
-        L = y_group
-        T = _round_up(P2, tile) // tile
+        T = _round_up(y.shape[1], tile) // tile
         R = _round_up(P1, REGION_ROWS) // REGION_ROWS
-
-        # exact centroid-to-point distances per tile, centred on the group y-mean
-        cg, rr, y = region_stats(x, y)
-        d_tile = torch.empty((G, L * R, T), dtype=torch.float32, device=x.device)
-        gs = max(1, _MASK_CHUNK_ELEMS // max(1, L * R * T * tile))
-        for g0 in range(0, G, gs):
-            d2 = centroid_d2(cg[g0 : g0 + gs], y[g0 : g0 + gs],
-                             None if y_valid is None else y_valid[g0 : g0 + gs])  # [g, L*R, P2]
-            d2 = torch.nn.functional.pad(d2, (0, T * tile - P2), value=torch.inf)
-            d_tile[g0 : g0 + gs] = torch.sqrt(
-                torch.clamp_min(d2.reshape(d2.shape[0], L * R, T, tile).amin(dim=-1), 0.0)
-            )
-        d_tile = d_tile.reshape(F, R, T)
-        dmin = d_tile.amin(dim=-1)  # [F, R]
-        run = d_tile - rr[:, :, None] <= (dmin + rr)[:, :, None] + 1e-3
-        # inf <= inf holds: cull all-invalid clouds outright (their rows give BIG)
-        run = run & torch.isfinite(d_tile)
-        if x_valid is not None:
-            run = run & x_valid.to(torch.bool)[:, None, None]
+        cg, rr, yc = region_stats(x, y)  # centred on the group y-mean
+        if x.is_cuda:
+            run = launch_mask(cg, rr, yc, None if y_valid is None else y_valid.to(torch.bool).contiguous(),
+                              None if x_valid is None else x_valid.to(torch.bool).contiguous(), tile, y_group)
+        elif x.device.type == "cpu":
+            run = plain_mask(cg, rr, yc, y_valid, x_valid, tile, y_group)
+        else:
+            raise ValueError(f"cull_mask runs on CUDA or CPU tensors, got {x.device}")
         if P.recording():
             P.count("cull.blocks_kept", run)
             P.count("cull.blocks_live", F * R * T if x_valid is None else x_valid.to(torch.bool).sum() * (R * T))
-        return run.to(torch.int32)
+        return run
 
 
 def _culled_nearest(x, y4, ctr, mask, y_group: int, tile: int):

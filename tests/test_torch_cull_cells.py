@@ -13,6 +13,13 @@ blocks), x_valid=False frames, and a cloud whose every 7th point has exact
 copies at +1 (the same cell), +128 and +256 (the next cells), so that
 minima tie across cells and the first copy in ascending order must win.
 
+The mask kernel (csrc/h2o_cull_mask.cu, `launch_mask`) writes the flags
+that `plain_mask` computes, from the same region statistics, by the direct
+difference instead of the expansion: its flags may differ only on blocks
+whose margin lies within rounding of the threshold, held here at 1e-5 m of
+the float64 margin, on scenes at y_group 1 and 160 with 4000 points (a
+ragged last tile at every tile tried).
+
 Tolerances: the plain versions at two tiles and the kernels against the
 plain versions are bit-equal (one pinned pair function, the same first
 minimum); against the JAX kernel (Pallas interpret mode) the bounds of
@@ -213,3 +220,134 @@ def test_cuda_cull_kernels_under_cell_dropping_masks(tile):
     mask = _drop_mask(x.shape[0], x.shape[1], y.shape[1], tile, seed=tile).cuda()
     d, _, dvec = _assert_kernels_match_plain(ops, mask, L, tile)
     assert bool((d[4] == CU.BIG).all()) and bool((dvec[4] == 0).all())
+
+
+def _mask_operands(**bad):
+    """Operands of `launch_mask` on the CPU (L = 2, R = 2, 300 points), with
+    the named ones replaced."""
+    cg, rr, yc = CU.region_stats(torch.zeros(4, 130, 3), torch.ones(2, 300, 3))
+    ops = dict(cg=cg, rr=rr, y=yc, y_valid=torch.ones(2, 300, dtype=torch.bool),
+               x_valid=torch.ones(4, dtype=torch.bool))
+    ops.update(bad)
+    return ops
+
+
+@pytest.mark.parametrize("tile", [0, 64, 200, 2000])
+def test_launch_mask_refuses_a_tile_that_is_not_a_multiple_of_128(tile):
+    before = CU.MASK_KERNEL.launches
+    with pytest.raises(ValueError, match="multiple of 128"):
+        CU.launch_mask(**_mask_operands(), tile=tile, y_group=2)
+    assert CU.MASK_KERNEL.launches == before
+
+
+@pytest.mark.parametrize("case", ["cpu", "cg_float64", "rr_int32", "y_valid_uint8", "x_valid_float",
+                                  "y_strided", "x_valid_strided"])
+def test_launch_mask_refuses_operands_it_does_not_take(case):
+    """A CPU tensor, a wrong dtype or a non-contiguous operand raises before
+    any launch."""
+    ops = _mask_operands()
+    bad, match = {
+        "cpu": ({}, "must be a CUDA tensor"),
+        "cg_float64": (dict(cg=ops["cg"].double()), "cg is torch.float64"),
+        "rr_int32": (dict(rr=ops["rr"].to(torch.int32)), "rr is torch.int32"),
+        "y_valid_uint8": (dict(y_valid=ops["y_valid"].to(torch.uint8)), "y_valid is torch.uint8"),
+        "x_valid_float": (dict(x_valid=ops["x_valid"].float()), "x_valid is torch.float32"),
+        "y_strided": (dict(y=ops["y"].transpose(0, 1).contiguous().transpose(0, 1)), "y must be contiguous"),
+        "x_valid_strided": (dict(x_valid=torch.ones(8, dtype=torch.bool)[::2]), "x_valid must be contiguous"),
+    }[case]
+    before = CU.MASK_KERNEL.launches
+    with pytest.raises(ValueError, match=match):
+        CU.launch_mask(**_mask_operands(**bad), tile=128, y_group=2)
+    assert CU.MASK_KERNEL.launches == before
+
+
+@pytest.mark.parametrize("tile", TILES)
+def test_cull_mask_on_cpu_is_the_plain_version(tile):
+    """On CPU tensors `cull_mask` is `plain_mask` on `region_stats`' outputs
+    and launches nothing; its flags are 0/1, 0 on x_valid=False frames and
+    the all-invalid cloud."""
+    x, y, yv, xv, L = _scene()
+    before = CU.MASK_KERNEL.launches
+    got = CU.cull_mask(x, y, yv, tile, L, xv)
+    assert CU.MASK_KERNEL.launches == before
+    assert got.dtype == torch.int32 and got.shape == (x.shape[0], 7, -(-y.shape[1] // tile))
+    assert torch.equal(got, CU.plain_mask(*CU.region_stats(x, y), yv, xv, tile, L))
+    assert set(got.unique().tolist()) == {0, 1} and bool((got[~_live(yv, xv, L)] == 0).all())
+
+
+MASK_LENGTHS = (160, 97, 40, 123)  # live frames per cloud at y_group 160; the rest mask-padded
+
+
+def _cuda_mask_scene(L: int):
+    """(x, y, y_valid, x_valid) on the card: `_scene`'s clouds at y_group L
+    (1: 8 clouds, 160: 4 clouds whose frames past MASK_LENGTHS are
+    x_valid=False), 4000 points."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from oakink2_tamf_tpu_torch import _device
+
+    _device.set_fp32_precision()
+    x, y, yv, xv, _ = _scene(G=8 if L == 1 else 4, L=L)
+    if L > 1:
+        for g, n in enumerate(MASK_LENGTHS):
+            xv[g * L + n : (g + 1) * L] = False
+    return x.cuda(), y.cuda(), yv.cuda(), xv.cuda()
+
+
+def _margins(cg, rr, yc, yv, tile: int, L: int):
+    """The float64 margin of every block [F, R, T]: (dmin + rr + 1e-3) -
+    (d_t - rr) from the exact distances of the same centred operands (NaN
+    or -inf where d_t is inf)."""
+    G, P2, _ = yc.shape
+    F, R = rr.shape
+    T = -(-P2 // tile)
+    d = ((cg.double()[:, :, None] - yc.double()[:, None]) ** 2).sum(-1).sqrt()  # [G, L*R, P2]
+    d = d.masked_fill(~yv[:, None], float("inf"))
+    d = torch.nn.functional.pad(d, (0, T * tile - P2), value=float("inf"))
+    d = d.reshape(G, L * R, T, tile).amin(-1).reshape(F, R, T)
+    r = rr.double()[:, :, None]
+    return (d.amin(-1, keepdim=True) + r + 1e-3) - (d - r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", (1, 160))
+@pytest.mark.parametrize("tile", CUDA_TILES)
+def test_cuda_mask_kernel_matches_plain_version(tile, L):
+    """The mask kernel's flags equal `plain_mask`'s on every block whose
+    float64 margin lies more than 1e-5 m from the threshold (the blocks that
+    differ are counted and printed); x_valid=False frames and the
+    all-invalid cloud come out all-zero; on a CUDA tensor `cull_mask`
+    launches the kernel once."""
+    x, y, yv, xv = _cuda_mask_scene(L)
+    cg, rr, yc = CU.region_stats(x, y)
+    got = CU.launch_mask(cg, rr, yc, yv, xv, tile, L)
+    want = CU.plain_mask(cg, rr, yc, yv, xv, tile, L)
+    differ = got != want
+    near = _margins(cg, rr, yc, yv, tile, L).abs() <= 1e-5
+    print(f"tile {tile} y_group {L}: {int(differ.sum())} of {got.numel()} blocks differ from the plain version, "
+          f"{int(near.sum())} lie within 1e-5 m of the threshold")
+    assert not bool((differ & ~near).any())
+    assert set(got.unique().tolist()) == {0, 1}
+    assert bool((got[~_live(yv, xv, L)] == 0).all())
+    before = CU.MASK_KERNEL.launches
+    assert torch.equal(CU.cull_mask(x, y, yv, tile, L, xv), got)
+    assert CU.MASK_KERNEL.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", (1, 160))
+@pytest.mark.parametrize("tile", CUDA_TILES)
+def test_cuda_culled_searches_on_the_mask_kernel_equal_all_pairs(tile, L):
+    """#2 and #3 under the mask kernel's flags (the wrappers on CUDA
+    tensors): values and dvec bit-equal to h2o_nn / h2o_nn_dvec on live
+    frames, (BIG, 0) elsewhere."""
+    x, y, yv, xv = _cuda_mask_scene(L)
+    before = CU.MASK_KERNEL.launches
+    d = CU.h2o_cull(x, y, yv, tile=tile, y_group=L, x_valid=xv)
+    d3, dvec = CU.h2o_cull_dvec(x, y, yv, tile=tile, y_group=L, x_valid=xv)
+    assert CU.MASK_KERNEL.launches == before + 2
+    live = _live(yv, xv, L)
+    da, _ = NN.h2o_nn(x, y, yv, L)
+    da3, dva = NN.h2o_nn_dvec(x, y, yv, L)
+    assert torch.equal(d[live], da[live]) and torch.equal(d3[live], da3[live]) and torch.equal(dvec[live], dva[live])
+    assert bool((d[~live] == CU.BIG).all()) and bool((dvec[~live] == 0).all())

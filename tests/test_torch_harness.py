@@ -24,7 +24,7 @@ from oakink2_tamf_tpu_torch.ops import chamfer_nn as NN
 from oakink2_tamf_tpu_torch.ops import chamfer_signed as CS
 
 KERNELS = (NN.KERNEL, CU.KERNEL, CS.KERNEL, CS.BWD_KERNEL, CL.KERNEL,
-           NN.DVEC_KERNEL, CU.DVEC_KERNEL, HB.KERNEL) + CC.KERNELS + (CL.CULL_KERNEL,)
+           NN.DVEC_KERNEL, CU.DVEC_KERNEL, HB.KERNEL) + CC.KERNELS + (CL.CULL_KERNEL, CU.MASK_KERNEL)
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
 PKG = pathlib.Path(oakink2_tamf_tpu_torch.__file__).parent
