@@ -8,6 +8,7 @@ import dataclasses
 import time
 from typing import Any
 
+import numpy as np
 import torch
 
 from ..lib import assets as A
@@ -175,11 +176,24 @@ class tf32:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = self.saved
 
 
-def half_batch(batch: dict) -> dict:
-    """The first half of the batch's rows: the fault of a step that leaves
-    half of its batch out and takes its means over the rest."""
-    n = len(batch["mask"])
-    return {k: v[: n // 2] for k, v in batch.items()}
+def half_batch(batch: dict, shards: int = 1) -> dict:
+    """The first half of the rows of each of `shards` equal blocks of the
+    batch (a rank's rows in a cell of several chips): the fault of a step
+    that leaves half of its batch out and takes its means over the rest."""
+    n = len(batch["mask"]) // shards
+    return {k: np.concatenate([v[s * n : s * n + n // 2] for s in range(shards)]) for k, v in batch.items()}
+
+
+def rank_rows(batch: dict, rank: int, rows: int) -> dict:
+    """Rows [rank*rows, (rank+1)*rows) of a global batch: a rank's share, as
+    the program's mesh.shard_rows cuts it."""
+    return {k: v[rank * rows : (rank + 1) * rows] for k, v in batch.items()}
+
+
+def dropout_tag(step: int, rank: int) -> str:
+    """The tag of the dropout seed of a checked step on a rank (rank 0's is
+    the tag of one chip's step)."""
+    return f"dropout{step}" if rank == 0 else f"dropout{step}.rank{rank}"
 
 
 def control_readings(ref_fn, ref, checks_fn, faults=()) -> dict:

@@ -1,5 +1,5 @@
 """G training: the program's train step (parallel/train.make_g_train_step) on
-a pool of distinct batches, each moved to the card per step with
+a pool of distinct global batches, each moved to the card per step with
 launch/common.device_batch, steps sent without a per-step synchronise.
 
 Set-up builds one train state, drives it through its first three steps on
@@ -9,6 +9,17 @@ keeps the first gradient and the parameters after step 3, warms one more
 step, and hands the same state to the window. After the window the program
 is freed and the reference follows the same three steps from the same
 weights, batches and seeds.
+
+On W chips each rank drives the step under the live process group with
+rows [r*b, (r+1)*b) of every global batch of W*b rows and its own dropout
+seeds: b is the configuration's batch_size, which the port's loader reads
+per rank, and each global batch is in one random order, so the ranks' rows
+differ in length as the loader's shuffled deal makes them. The step
+generator is in the same state on every rank, so the timesteps and the
+noise are one draw over the global batch. The reference runs the global
+step alone, block by block (reference/steps.g_step), on every rank's card,
+and each rank compares its own state with it. The rate counts the global batch; the work counted for
+`mfu.train` is the group's, the kernels' least times this rank's rows.
 """
 
 from __future__ import annotations
@@ -25,9 +36,10 @@ def _extra_cfg(loss: dict):
     return LL.ExtraLossConfig(**loss)
 
 
-def _pool(ctx):
+def _pool(ctx, bs: int):
+    """The pool's global batches of `bs` segments, each holding the same
+    sizes in its own order, and the text table."""
     tr, cfg = ctx.traffic, ctx.cfg
-    bs = int(cfg["train"]["batch_size"])
     segs = segments.make_segments(ctx.seed, "pool", bs * int(tr["pool_batches"]), common.data_params(cfg, tr),
                                   group=bs)
     table = segments.text_table(ctx.seed, int(tr.get("n_prompts", 7)))
@@ -53,9 +65,12 @@ def run(ctx: common.Context) -> dict:
     step_fn = PT.make_g_train_step(sched, mano, common.program_assets(dev), _extra_cfg(tc["loss"]),
                                    chunk=int(tc["chunk"]), dist_impl=ctx.traffic["dist_impl"])
     ctx.mark("model, optimizer and step")
-    groups, table = _pool(ctx)
+    b = int(tc["batch_size"])  # a rank's rows
+    bs = b * ctx.world
+    groups, table = _pool(ctx, bs)
     ctx.mark("segments")
-    pool = [segments.collate(g, int(dcfg["max_nobj"]), table) for g in groups]
+    batches = [segments.collate(g, int(dcfg["max_nobj"]), table) for g in groups]  # global batches
+    pool = [common.rank_rows(g, ctx.rank, b) for g in batches]
     gen = torch.Generator(device=dev)
     ctx.mark("collate")
 
@@ -63,7 +78,7 @@ def run(ctx: common.Context) -> dict:
     named = dict(model.named_parameters())
     for k in range(3):  # the checked steps, then one warm step
         gen.manual_seed(seeds.sub(ctx.seed, f"step{k}"))
-        seeds.seed_global(dev, ctx.seed, f"dropout{k}")
+        seeds.seed_global(dev, ctx.seed, common.dropout_tag(k, ctx.rank))
         losses.append(step_fn(state, device_batch(pool[k], dev), generator=gen)["loss"])
         if k == 0:
             g1 = compare.first_gradients(opt.adamw, named)
@@ -85,26 +100,25 @@ def run(ctx: common.Context) -> dict:
     n, m = common.drive(ctx, step, count_launches)
     ctx.mark("window")
     launches = {k.name: k.launches for k in kernels}
-    bs = int(tc["batch_size"])
     del state, model, opt, step_fn
     common.free_device(dev)
 
     prog = {"losses": losses, "g1": g1, "p3": p3}
-    ref = reference(ctx, groups, table)
+    ref = reference(ctx, batches)
     ctx.mark("reference")
     checks = compare.train_checks(prog, ref, ctx.limits, ctx.notes)
     readings = {}
     if ctx.control:
         readings = common.control_readings(
-            lambda **kw: reference(ctx, groups, table, **kw), ref,
+            lambda **kw: reference(ctx, batches, **kw), ref,
             lambda got, r: compare.train_checks(got, r, ctx.limits), [("half_batch", {"half": True})])
-    timed = [pool[(4 + i) % len(pool)] for i in range(n)]
+    timed = [batches[(4 + i) % len(pool)] for i in range(n)]
     traced = [pool[(4 + i) % len(pool)] for i in range(n, n + m)]
     return {
         "attempted": n, "failed": 0,
         "e2e": {"train_samples_per_s": bs * n / ctx.window.seconds},
         "checks": checks, "readings": readings,
-        "layer": {"work_flops": sum(step_flops(cfg, b) for b in timed)},
+        "layer": {"work_flops": sum(step_flops(cfg, g) for g in timed)},
         "traced": {"steps": m, "launches": launches,
                    "bound_s": {"nn_signed": sum(bound_nn_signed(cfg, b) for b in traced),
                                "dist_loss": sum(bound_dist_loss(cfg, b) for b in traced)}},
@@ -133,9 +147,10 @@ def bound_dist_loss(cfg: dict, batch: dict) -> float:
     return work.bound_s(work.search(live, P), work.dist_loss_bytes(live, batch["obj_mask"].size, P))
 
 
-def reference(ctx: common.Context, groups, table, half: bool = False) -> dict:
-    """The reference's first three steps on the same batches and seeds (on
-    the first half of each batch's rows with `half`)."""
+def reference(ctx: common.Context, batches, half: bool = False) -> dict:
+    """The reference's first three steps on the same global batches and
+    seeds, one block of rows for each rank (on the first half of each
+    block's rows with `half`)."""
     from ..lib import assets as A
     from ..reference import diffusion as RD
     from ..reference import steps as RS
@@ -152,11 +167,10 @@ def reference(ctx: common.Context, groups, table, half: bool = False) -> dict:
     p0 = common.named_clone(model)
     losses = []
     for k in range(3):
-        batch = segments.collate(groups[k], int(cfg["data"]["max_nobj"]), table)
-        batch = segments.to_device(common.half_batch(batch) if half else batch, dev)
+        batch = segments.to_device(common.half_batch(batches[k], ctx.world) if half else batches[k], dev)
         gen.manual_seed(seeds.sub(ctx.seed, f"step{k}"))
-        seeds.seed_global(dev, ctx.seed, f"dropout{k}")
-        losses.append(RS.g_step(model, opt, sched, mano, faces, assets, tc["loss"], batch, gen))
+        losses.append(RS.g_step(model, opt, sched, mano, faces, assets, tc["loss"], batch, gen, ctx.world,
+                                lambda s, k=k: seeds.seed_global(dev, ctx.seed, common.dropout_tag(k, s))))
         if k == 0:
             g1 = compare.first_gradients(opt.adamw, named)
     return {"losses": losses, "g1": g1, "p0": p0, "p3": common.named_clone(model)}

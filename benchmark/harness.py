@@ -2,7 +2,8 @@
 
 Everything is found by name: the cell in BENCHMARK.json names its
 configuration (whose file is given there) and its traffic mix
-(benchmark/traffic/<traffic>.json), the mix names its entry
+(benchmark/traffic/<traffic>.json, whose `min_seconds`, where it has one,
+lengthens a shorter --seconds), the mix names its entry
 (benchmark/entries/<entry>.py) and the cell's limits on the compared
 numbers live in benchmark/limits/<cell>.json. With `--trace 1` each
 per-layer metric listed for the cell is read by its own reader,
@@ -76,6 +77,7 @@ class Run:
     layer: dict  # the entry's counts for the timed window
     traced: dict  # the entry's counts for the traced window
     power_limit_w: float | None
+    chips: int = 1  # the cell's ranks, one card each
 
 
 def parse(argv):
@@ -117,6 +119,7 @@ def execute(spec: dict, seed: int, seconds: float, trace: bool, device, process_
     from .lib import peaks
 
     bench, cell = spec["bench"], spec["cell"]
+    seconds = max(seconds, float(spec["traffic"].get("min_seconds", 0)))  # a mix may ask for a longer window
     t_import = time.perf_counter()
     if device.type == "cuda":
         torch.zeros(1, device=device)  # the CUDA context
@@ -130,9 +133,16 @@ def execute(spec: dict, seed: int, seconds: float, trace: bool, device, process_
     setup_s = ctx.window.t0 - process_start
 
     metrics = {}
-    run = Run(window_s=ctx.window.seconds, trace=ctx.traced.summary if trace else None,
-              memory_peak=ctx.window.memory_peak, layer=out["layer"], traced=out.get("traced", {}),
-              power_limit_w=peaks.power_limit_w() if device.type == "cuda" else None)
+    summary, peak = ctx.traced.summary if trace else None, ctx.window.memory_peak
+    if world > 1:  # the fullest card's peak, the busy time averaged over the cards
+        from .lib import ranks
+
+        peak = int(ranks.over_ranks(peak, "max", host_group))
+        if summary is not None:
+            summary = dataclasses.replace(summary, busy_s=ranks.over_ranks(summary.busy_s, "mean", host_group))
+    run = Run(window_s=ctx.window.seconds, trace=summary, memory_peak=peak, layer=out["layer"],
+              traced=out.get("traced", {}),
+              power_limit_w=peaks.power_limit_w() if device.type == "cuda" else None, chips=world)
     for m in cell_metrics(bench, cell["name"], trace):
         if trace:
             v = load_reader(m["name"])(run)

@@ -6,9 +6,12 @@ and `--rank r --world n --port p --handoff <dir> --t0 <its start>`. Each
 rank joins a torch.distributed process group at tcp://localhost:<port>
 (NCCL on the cards), runs the cell on card r and writes its result and its
 lines for standard error to <dir>/rank<r>.json; no tensor passes between
-the processes outside the process group. <dir> is a fresh directory under
-TMPDIR, removed afterwards. The parent waits for every rank, ends them all
-if one fails, and merges their results (`merge`).
+the processes outside the process group. Unless the caller set it, each
+rank runs with OMP_NUM_THREADS=1, as torchrun starts several processes on
+one host, so that the ranks' host threads do not crowd the host's cores.
+<dir> is a fresh directory under TMPDIR, removed afterwards. The parent
+waits for every rank, ends them all if one fails, and merges their results
+(`merge`).
 """
 
 from __future__ import annotations
@@ -37,12 +40,14 @@ def launch(run_py: str, argv: list[str], world: int, t0: float, rank_device: str
     rank order; raises RuntimeError naming the rank where one fails."""
     handoff = tempfile.mkdtemp(prefix="bench-ranks-")
     port = free_port()
+    env = dict(os.environ)
+    env.setdefault("OMP_NUM_THREADS", "1")  # as torchrun sets it for several processes a host
     procs = []
     try:
         for r in range(world):
             cmd = [sys.executable, run_py, *argv, "--rank", str(r), "--world", str(world), "--port", str(port),
                    "--handoff", handoff, "--t0", repr(t0), "--rank-device", rank_device]
-            procs.append(subprocess.Popen(cmd, stdout=subprocess.DEVNULL))
+            procs.append(subprocess.Popen(cmd, stdout=subprocess.DEVNULL, env=env))
         failed = _wait(procs)
         if failed:
             raise RuntimeError(f"rank(s) {failed} of {world} failed")
@@ -83,6 +88,16 @@ def _wait(procs) -> list[int]:
                 for q in pending.values():
                     q.terminate()
     return sorted(failed)
+
+
+def over_ranks(value: float, op: str, group) -> float:
+    """`value` reduced over the ranks of `group` ("max" or "mean"), on the host."""
+    import torch
+    import torch.distributed as dist
+
+    x = torch.tensor([float(value)], dtype=torch.float64)
+    dist.all_reduce(x, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM, group=group)
+    return float(x[0]) if op == "max" else float(x[0]) / dist.get_world_size(group)
 
 
 def write(handoff: str, rank: int, result: dict, lines: list[str]) -> None:

@@ -48,22 +48,40 @@ def g_cond(batch):
     return {k: batch[k] for k in ("text_emb", "hand_side", "shape", "obj_traj", "obj_embedding", "obj_mask")}
 
 
-def g_step(model, opt, sched, mano, faces, assets, coef, batch, generator) -> float:
-    """One G train step; returns its loss."""
+def g_step(model, opt, sched, mano, faces, assets, coef, batch, generator, shards: int = 1,
+           before_shard=lambda s: None) -> float:
+    """One G train step; returns its loss.
+
+    With `shards` W > 1 it is the step of W data-parallel processes on one
+    global batch, each holding an equal block of its rows: the timesteps
+    and the q_sample noise are drawn over the whole batch, then block s in
+    turn (after `before_shard(s)`, which seeds its dropout) adds to the
+    gradient its diffusion loss over W and its extra loss, a batch sum. The
+    gradient is then the blocks' mean diffusion gradient plus the sum of
+    their extra ones, and the loss the same sum of the blocks' losses."""
     model.train()
     x_start = batch["pose_repr"]
     bs = x_start.shape[0]
     steps = sched["coef1"].shape[0]
     t = torch.randint(0, steps, (bs,), generator=generator, device=x_start.device)
     noise = torch.randn(x_start.shape, generator=generator, device=x_start.device, dtype=x_start.dtype)
-    gt = LL.gt_geometry(mano, faces, batch)
     opt.zero_grad()
-    out = model(D.q_sample(sched, x_start, t, noise), t, g_cond(batch))
-    loss = torch.mean(D.masked_l2(x_start, out, batch["mask"]))
-    loss = loss + LL.extra_loss(mano, faces, assets, coef, out, batch, gt)
-    loss.backward()
+    total = 0.0
+    b = bs // shards
+    for s in range(shards):
+        rows = slice(s * b, (s + 1) * b)
+        part = {k: v[rows] for k, v in batch.items()}
+        before_shard(s)
+        gt = LL.gt_geometry(mano, faces, part)
+        out = model(D.q_sample(sched, part["pose_repr"], t[rows], noise[rows]), t[rows], g_cond(part))
+        loss = torch.mean(D.masked_l2(part["pose_repr"], out, part["mask"]))
+        if shards > 1:
+            loss = loss / shards
+        loss = loss + LL.extra_loss(mano, faces, assets, coef, out, part, gt)
+        loss.backward()
+        total += float(loss.detach())
     opt.step()
-    return float(loss.detach())
+    return total
 
 
 def r_step(net, opt, mano, faces, assets, coef, batch) -> float:

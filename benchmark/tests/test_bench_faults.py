@@ -1,45 +1,22 @@
 """A run whose timed path is broken underneath comes out not correct: once for
-each fault its cell can have (none of the cells spans chips, so the
-exchange between chips has no fault to plant). The runs skip the harness's
-look for a chip and drive the rest of a run on the CPU at a tiny size,
-against the cells' own limits."""
+each fault its cell can have (lib/faults.py; the faults of the exchange
+between chips are test_bench_ranks.py's). The runs skip the harness's look
+for a chip and drive the rest of a run on the CPU at a tiny size, against
+the cells' own limits."""
 
 import numpy as np
 import pytest
 
+from benchmark.lib import faults
 from benchmark.tests.tiny import run_tiny
 
 TRAIN = ("g_mdm_l.train_fused", "r_refine.train_cull")
 
 
-def _unchanged(monkeypatch):
-    from oakink2_tamf_tpu_torch.parallel import train as PT
-
-    monkeypatch.setattr(PT, "_step", lambda state: None)
-
-
-def _half_batch(monkeypatch):
-    from oakink2_tamf_tpu_torch.parallel import train as PT
-
-    for name in ("make_g_train_step", "make_r_train_step"):
-        make = getattr(PT, name)
-
-        def faulty(*a, _make=make, **kw):
-            step = _make(*a, **kw)
-
-            def half(state, batch, **skw):
-                n = batch["mask"].shape[0] // 2
-                return step(state, {k: v[:n] for k, v in batch.items()}, **skw)
-
-            return half
-
-        monkeypatch.setattr(PT, name, faulty)
-
-
 @pytest.mark.parametrize("cell", TRAIN)
-@pytest.mark.parametrize("fault", [_unchanged, _half_batch], ids=["state_unchanged", "half_batch"])
+@pytest.mark.parametrize("fault", ["state_unchanged", "half_batch"])
 def test_a_broken_train_step_is_not_correct(cell, fault, monkeypatch):
-    fault(monkeypatch)
+    faults.FAULTS[fault](monkeypatch.setattr)
     r = run_tiny(cell)
     assert not r["correct"], r["checks"]
 

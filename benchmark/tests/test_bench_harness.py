@@ -195,3 +195,20 @@ def test_the_run_refuses_without_the_program(tmp_path):
                          cwd=tmp_path, timeout=120)
     assert out.returncode != 0 and out.stdout == ""
     assert "not in this checkout" in out.stderr
+
+
+def test_a_mix_may_lengthen_the_window():
+    import re
+    import time
+
+    import torch
+
+    from benchmark.tests.tiny import tiny_spec
+
+    torch.set_num_threads(2)
+    spec = tiny_spec("r_refine.train_cull")
+    spec["traffic"]["min_seconds"] = 0.5
+    lines = []
+    r = harness.execute(spec, 2**31 + 29, 0.01, False, torch.device("cpu"), time.perf_counter(), lines.append)
+    window = float(re.search(r"window_s ([0-9.]+)", "\n".join(lines)).group(1))
+    assert r["correct"] and window >= 0.5
