@@ -44,68 +44,21 @@ def _clamp_tile(chunk: int, p2: int) -> int:
     return max(512, min(chunk, -(-p2 // 128) * 128))
 
 
-# dense {0, +-1} corner-difference and incidence operators per (faces, V,
-# device): D1/D2 [F, V] map verts to the two edge vectors, A [V, F] sums
-# face normals into vertices. Bounded: one entry per hand side and device.
-# Meshes with V*F above _VN_DENSE_MAX take the scatter route instead.
-_VN_DENSE_MAX = 8_000_000
-_VN_OPS_CACHE: dict[tuple, tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = {}
-
-
-def _vn_dense_ops(faces: np.ndarray, num_v: int, device: torch.device):
-    key = (faces.tobytes(), num_v, str(device))
-    ops = _VN_OPS_CACHE.get(key)
-    if ops is None:
-        F = faces.shape[0]
-        d1 = np.zeros((F, num_v), np.float32)
-        d2 = np.zeros((F, num_v), np.float32)
-        a = np.zeros((num_v, F), np.float32)
-        r = np.arange(F)
-        np.add.at(d1, (r, faces[:, 1]), 1.0)
-        np.add.at(d1, (r, faces[:, 0]), -1.0)
-        np.add.at(d2, (r, faces[:, 2]), 1.0)
-        np.add.at(d2, (r, faces[:, 0]), -1.0)
-        for i in range(3):
-            np.add.at(a, (faces[:, i], r), 1.0)
-        if len(_VN_OPS_CACHE) >= 8:
-            _VN_OPS_CACHE.pop(next(iter(_VN_OPS_CACHE)))
-        # normal tensors even when first built under inference_mode (serving):
-        # a training step that reuses the cached operators saves them for backward
-        with torch.inference_mode(False):
-            ops = _VN_OPS_CACHE[key] = tuple(torch.from_numpy(m).to(device) for m in (d1, d2, a))
-    return ops
-
-
-def _apply_vertex_op(op: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """op [M, N] applied to v [..., N, 3] -> [..., M, 3] as one matmul."""
-    lead = v.shape[:-2]
-    n = v.shape[-2]
-    flat = v.reshape(-1, n, 3).permute(1, 0, 2).reshape(n, -1)  # [N, B*3]
-    out = op @ flat
-    return out.reshape(op.shape[0], -1, 3).permute(1, 0, 2).reshape(lead + (op.shape[0], 3))
-
-
-def vertex_normals(verts: torch.Tensor, faces: np.ndarray) -> torch.Tensor:
-    """Area-weighted per-vertex normals, normalized. verts [..., V, 3], faces
-    [F, 3] host ints -> [..., V, 3]. Up to V*F = _VN_DENSE_MAX (MANO is
-    778 x 1538) the corner differences and the face->vertex sum are dense
-    {0, +-1} operators applied as matmuls; above it (object meshes, whose
-    operators would take V*F*12 bytes) corner gathers and three index_add
-    over the faces' corners, as the JAX package's scatter path."""
-    faces = np.asarray(faces)
-    num_v = verts.shape[-2]
-    if num_v * faces.shape[0] > _VN_DENSE_MAX:
-        f = torch.as_tensor(faces, dtype=torch.long, device=verts.device)
-        v0, v1, v2 = (verts.index_select(-2, f[:, i]) for i in range(3))
-        fn = torch.linalg.cross(v1 - v0, v2 - v0, dim=-1)  # [..., F, 3]
-        acc = torch.zeros_like(verts)
-        for i in range(3):
-            acc = acc.index_add(-2, f[:, i], fn)
-    else:
-        d1, d2, a = _vn_dense_ops(faces, num_v, verts.device)
-        e1 = _apply_vertex_op(d1, verts)
-        e2 = _apply_vertex_op(d2, verts)
-        acc = _apply_vertex_op(a, torch.linalg.cross(e1, e2, dim=-1))
+def vertex_normals(verts: torch.Tensor, faces) -> torch.Tensor:
+    """Area-weighted per-vertex normals, normalized. verts [..., V, 3];
+    faces [F, 3] host ints shared by every mesh, or an int64 tensor
+    [..., F, 3] whose leading dims broadcast to the verts' (a face set per
+    row, as a stacked hand's sides) -> [..., V, 3]. A gather of the
+    faces' corners, their cross products, and a scatter-add of each face's
+    normal into its three corners."""
+    f = torch.as_tensor(faces, dtype=torch.long, device=verts.device)
+    lead, nf = verts.shape[:-2], f.shape[-2]
+    corners = verts.gather(-2, f.reshape(f.shape[:-2] + (3 * nf, 1)).expand(lead + (3 * nf, 3)))
+    v0, v1, v2 = corners.unflatten(-2, (nf, 3)).unbind(-2)
+    fn = torch.linalg.cross(v1 - v0, v2 - v0, dim=-1)  # [..., F, 3]
+    acc = torch.zeros_like(verts)
+    for i in range(3):
+        acc = acc.scatter_add(-2, f[..., i, None].expand(lead + (nf, 3)), fn)
     n2 = torch.sum(acc * acc, dim=-1, keepdim=True)
     return acc * torch.rsqrt(torch.clamp_min(n2, 1e-24))
 

@@ -34,6 +34,19 @@ TIP_VERT_IDS = (745, 317, 444, 556, 673)
 JOINT_REORDER = (0, 13, 14, 15, 16, 1, 2, 3, 17, 4, 5, 6, 18, 10, 11, 12, 19, 7, 8, 9, 20)
 
 
+# The kinematic tree is five fingers of three joints off the wrist: joint
+# 1 + 3f + d hangs off joint 3f + d for d > 0 and off the wrist (0) for d = 0.
+# So the joints of depth d + 1 are the strided slice LEVELS[d], whose parents
+# are the slice before it, and the chain composes a level of five joints at a
+# time. CHAIN_ORDER is the joints in the order the chain makes them.
+LEVELS = (slice(1, 16, 3), slice(2, 16, 3), slice(3, 16, 3))
+CHAIN_ORDER = (0,) + tuple(j for lvl in LEVELS for j in range(N_KIN_JOINTS)[lvl])
+assert all(PARENTS[j] == (0 if d == 0 else j - 1) for d, lvl in enumerate(LEVELS) for j in range(N_KIN_JOINTS)[lvl])
+# the 21 output joints (JOINT_REORDER of the posed joints, then the tips) as
+# indices into [posed joints in CHAIN_ORDER, tips]
+_JOINT_INDEX = tuple(CHAIN_ORDER.index(i) if i < N_KIN_JOINTS else i for i in JOINT_REORDER)
+
+
 class ManoModel(NamedTuple):
     """MANO template data as host numpy arrays."""
 
@@ -49,7 +62,15 @@ class ManoModel(NamedTuple):
 class ManoTensors:
     """ManoModel on a device; with a leading side axis (0 = rh, 1 = lh) when
     built by models/refine_r.stack_mano_models. `faces` and `template_perm`
-    stay host numpy (they are static index data)."""
+    stay host numpy (they are static index data).
+
+    The last six fields are what mano_forward and the normals read, derived
+    from the template once (float64 on the host, then float32): the shape
+    and pose blend shapes as one basis whose columns are coordinate-major
+    (c * 778 + v), the template in that layout, the rest joints of the
+    template and of each shape direction (j_regressor applied), the skinning
+    weights transposed with their joints in CHAIN_ORDER, and the faces as a
+    device index."""
 
     v_template: torch.Tensor
     shapedirs: torch.Tensor
@@ -58,31 +79,42 @@ class ManoTensors:
     skin_weights: torch.Tensor
     faces: np.ndarray
     template_perm: np.ndarray | None = None  # hand_template_perm of v_template
+    blend_basis: torch.Tensor | None = None  # [..., 145, 3 * 778]
+    template_cm: torch.Tensor | None = None  # [..., 3 * 778]
+    joint_template: torch.Tensor | None = None  # [..., 48]: the 16 rest joints
+    joint_dirs: torch.Tensor | None = None  # [..., 10, 48]
+    skin_t: torch.Tensor | None = None  # [..., 16, 778]
+    faces_t: torch.Tensor | None = None  # [..., F, 3] int64
 
     @classmethod
     def from_model(cls, model: ManoModel, device) -> "ManoTensors":
         def t(a):
             return torch.as_tensor(np.asarray(a, np.float32), device=device)
 
+        vt, sd, pd, jr, w = (np.asarray(a, np.float64) for a in model[:5])
+        lead = vt.shape[:-2]
+        basis = np.moveaxis(np.concatenate([sd, pd], axis=-1), (-3, -2, -1), (-1, -2, -3))  # [..., 145, 3, 778]
         return cls(
-            v_template=t(model.v_template),
-            shapedirs=t(model.shapedirs),
-            posedirs=t(model.posedirs),
-            j_regressor=t(model.j_regressor),
-            skin_weights=t(model.skin_weights),
+            v_template=t(vt),
+            shapedirs=t(sd),
+            posedirs=t(pd),
+            j_regressor=t(jr),
+            skin_weights=t(w),
             faces=np.asarray(model.faces, np.int32),
+            blend_basis=t(basis.reshape(lead + (N_SHAPE + N_POSEDIRS, 3 * N_VERTS))),
+            template_cm=t(np.swapaxes(vt, -1, -2).reshape(lead + (3 * N_VERTS,))),
+            joint_template=t((jr @ vt).reshape(lead + (3 * N_KIN_JOINTS,))),
+            joint_dirs=t(np.moveaxis((jr @ sd.reshape(lead + (N_VERTS, 3 * N_SHAPE))).reshape(
+                lead + (N_KIN_JOINTS, 3, N_SHAPE)), -1, -3).reshape(lead + (N_SHAPE, 3 * N_KIN_JOINTS))),
+            skin_t=t(np.swapaxes(w[..., list(CHAIN_ORDER)], -1, -2)),
+            faces_t=torch.as_tensor(np.asarray(model.faces, np.int64), device=device),
         )
 
     def side(self, s: int) -> "ManoTensors":
         """One side of a stacked model."""
-        return ManoTensors(
-            v_template=self.v_template[s],
-            shapedirs=self.shapedirs[s],
-            posedirs=self.posedirs[s],
-            j_regressor=self.j_regressor[s],
-            skin_weights=self.skin_weights[s],
-            faces=self.faces[s],
-        )
+        return dataclasses.replace(self, template_perm=None, **{
+            f.name: getattr(self, f.name)[s] for f in dataclasses.fields(self)
+            if f.name != "template_perm" and getattr(self, f.name) is not None})
 
 
 # ---------------------------------------------------------------------------
@@ -224,52 +256,88 @@ def get_mano_model(mano_assets_root: str | None, side: str = "right") -> ManoMod
 # ---------------------------------------------------------------------------
 
 
-def mano_forward(
-    model: ManoTensors, pose_quat: torch.Tensor, betas: torch.Tensor, center_idx: int | None = 0
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """MANO LBS for one side. pose_quat [..., 16, 4], betas [..., 10] ->
-    (verts [..., 778, 3], joints [..., 21, 3])."""
-    lead = pose_quat.shape[:-2]
-    B = int(np.prod(lead)) if lead else 1
-    q = pose_quat.reshape(B, N_KIN_JOINTS, 4)
-    b = torch.broadcast_to(betas, lead + (N_SHAPE,)).reshape(B, N_SHAPE)
+def _mm3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """3x3 @ 3x3 over the last two axes as multiply-adds (no batched GEMM)."""
+    return (a[..., :, :, None] * b[..., None, :, :]).sum(-2)
 
-    rot = T.quat_to_rotmat(q)  # [B, 16, 3, 3]
-    v_shaped = model.v_template[None] + torch.einsum("vcs,bs->bvc", model.shapedirs, b)
-    j_rest = torch.einsum("jv,bvc->bjc", model.j_regressor, v_shaped)  # [B, 16, 3]
 
+def _mv3(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """3x3 @ 3 over the last axes as multiply-adds (no batched GEMV)."""
+    return (a * v[..., None, :]).sum(-1)
+
+
+def _lbs(model: ManoTensors, q: torch.Tensor, b: torch.Tensor, side: torch.Tensor | None):
+    """LBS of q [S, M, 16, 4] and b [S, M, 10] on the model's one side
+    (S = 1) or, with `side` [S], each s on its own side of a stacked model.
+    -> (verts [S, M, 3, 778] coordinate-major, joints [S, M, 21, 3]),
+    not centred. The blend shapes and the skinning blend are one batched
+    GEMM each; the 3x3 products are elementwise."""
+    def pick(a):
+        return a[None] if side is None else a[side]
+
+    S, M = q.shape[:2]
+    rot = T.quat_to_rotmat(q)  # [S, M, 16, 3, 3]
     eye = torch.eye(3, dtype=rot.dtype, device=rot.device)
-    pose_feat = (rot[:, 1:] - eye).reshape(B, N_POSEDIRS)
-    v_posed = v_shaped + torch.einsum("vcp,bp->bvc", model.posedirs, pose_feat)
+    feat = torch.cat((b, (rot[:, :, 1:] - eye).reshape(S, M, N_POSEDIRS)), dim=-1)  # [S, M, 145]
+    v_posed = torch.baddbmm(pick(model.template_cm)[:, None], feat, pick(model.blend_basis))
+    j_rest = torch.baddbmm(pick(model.joint_template)[:, None], b, pick(model.joint_dirs))
+    j_rest = j_rest.view(S, M, N_KIN_JOINTS, 3)
 
-    glob = [T.assemble_T(j_rest[:, 0], rot[:, 0])]
-    for k in range(1, N_KIN_JOINTS):
-        p = PARENTS[k]
-        local = T.assemble_T(j_rest[:, k] - j_rest[:, p], rot[:, k])
-        glob.append(torch.matmul(glob[p], local))
-    G = torch.stack(glob, dim=1)  # [B, 16, 4, 4]
+    # the chain, a level at a time: G_k = G_parent(k) [R_k | j_k - j_parent(k)]
+    r_par, t_par, j_par = rot[:, :, :1], j_rest[:, :, :1], j_rest[:, :, :1]
+    rs, ts, corr = [r_par], [t_par], [t_par - _mv3(r_par, j_par)]
+    for lvl in LEVELS:
+        j_l = j_rest[:, :, lvl]
+        r_l = _mm3(r_par, rot[:, :, lvl])
+        t_l = _mv3(r_par, j_l - j_par) + t_par
+        rs.append(r_l)
+        ts.append(t_l)
+        corr.append(t_l - _mv3(r_l, j_l))
+        r_par, t_par, j_par = r_l, t_l, j_l
+    posed = torch.cat(ts, dim=2)  # [S, M, 16, 3], CHAIN_ORDER
+    # each joint's affine [R | t - R j] coordinate-major: [S, M, 12, 16]
+    affine = torch.cat((torch.cat(rs, dim=2).flatten(-2).transpose(-1, -2), torch.cat(corr, dim=2).transpose(-1, -2)),
+                       dim=-2)
+    blend = torch.bmm(affine.reshape(S, M * 12, N_KIN_JOINTS), pick(model.skin_t)).view(S, M, 12, N_VERTS)
+    r_blend = blend[:, :, :9].view(S, M, 3, 3, N_VERTS)
+    vp = v_posed.view(S, M, 3, N_VERTS)
+    verts = blend[:, :, 9:]
+    for c in range(3):
+        verts = torch.addcmul(verts, r_blend[:, :, :, c], vp[:, :, c : c + 1])
+    tips = verts[..., list(TIP_VERT_IDS)].transpose(-1, -2)
+    joints = torch.cat((posed, tips), dim=2)[:, :, list(_JOINT_INDEX)]
+    return verts, joints
 
-    posed_joints = G[..., :3, 3]
-    t_corr = G[..., :3, 3] - torch.einsum("bkij,bkj->bki", G[..., :3, :3], j_rest)
-    R_blend = torch.einsum("vk,bkij->bvij", model.skin_weights, G[..., :3, :3])
-    t_blend = torch.einsum("vk,bki->bvi", model.skin_weights, t_corr)
-    verts = torch.einsum("bvij,bvj->bvi", R_blend, v_posed) + t_blend
 
-    tips = verts[:, list(TIP_VERT_IDS)]
-    joints = torch.cat((posed_joints, tips), dim=1)[:, list(JOINT_REORDER)]
+def mano_forward(
+    model: ManoTensors, pose_quat: torch.Tensor, betas: torch.Tensor, center_idx: int | None = 0,
+    side: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """MANO LBS. pose_quat [..., 16, 4], betas [..., 10] ->
+    (verts [..., 778, 3], joints [..., 21, 3]). One side, or with `side`
+    (an int tensor [n], lead[0] == n) each of the n rows on its own side of
+    a stacked model, the side's arrays gathered on the device."""
+    lead = pose_quat.shape[:-2]
+    S = 1 if side is None else side.shape[0]
+    if side is not None and (side.dim() != 1 or lead[:1] != (S,)):
+        raise ValueError(f"side {tuple(side.shape)} must be [n] for poses {tuple(pose_quat.shape)}")
+    q = pose_quat.reshape(S, -1, N_KIN_JOINTS, 4)
+    b = torch.broadcast_to(betas, lead + (N_SHAPE,)).reshape(S, -1, N_SHAPE)
+    verts, joints = _lbs(model, q, b, side)
+    verts = verts.transpose(-1, -2)
     if center_idx is not None:
-        center = joints[:, center_idx : center_idx + 1]
-        verts = verts - center
-        joints = joints - center
+        center = joints[:, :, center_idx : center_idx + 1]
+        verts, joints = verts - center, joints - center
     return verts.reshape(lead + (N_VERTS, 3)), joints.reshape(lead + (N_JOINTS, 3))
 
 
 def recover_mano_from_pose_repr(
-    model: ManoTensors, pose_repr: torch.Tensor, shape: torch.Tensor
+    model: ManoTensors, pose_repr: torch.Tensor, shape: torch.Tensor, side: torch.Tensor | None = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """pose_repr [..., 99] + betas [..., 10] -> world-frame (verts, joints)."""
+    """pose_repr [..., 99] + betas [..., 10] -> world-frame (verts, joints);
+    `side` as mano_forward's."""
     tsl, quat = T.pose_repr_to_quat(pose_repr)
-    verts, joints = mano_forward(model, quat, shape, center_idx=0)
+    verts, joints = mano_forward(model, quat, shape, center_idx=0, side=side)
     return verts + tsl[..., None, :], joints + tsl[..., None, :]
 
 

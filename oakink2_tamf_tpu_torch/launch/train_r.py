@@ -118,11 +118,13 @@ def build_r_train_dataset(reg, mano_stack=None):
     return ds, cache
 
 
-def refine_forward_eval(net, mano_stack, batch, backend: str = "auto", chunk: int = 2048):
+def refine_forward_eval(net, mano_stack, batch, backend: str = "auto", chunk: int = 2048, normals: bool = False):
     """R's deterministic forward with the target branch: dropout off
-    (net.eval()), mask-padded frames culled as in training."""
+    (net.eval()), mask-padded frames culled as in training; the hand
+    normals only with `normals`."""
     net.eval()
-    return refine_forward(net, mano_stack, batch, backend=backend, loss_frame_mask=batch["mask"], chunk=chunk)
+    return refine_forward(net, mano_stack, batch, backend=backend, loss_frame_mask=batch["mask"], chunk=chunk,
+                          normals=normals)
 
 
 def make_overflow_probe(mano_stack, *, backend: str = "auto"):

@@ -171,13 +171,15 @@ def _dist_sums_fused(verts, normals, transf, obj_points, o2h_g, h2o_g, vw2, chun
 def extra_loss_gt_geometry(mano_stack: M.ManoTensors, batch: dict[str, Any], *,
                            with_chamfer: bool = True) -> dict[str, torch.Tensor]:
     """GT side of the extra loss, a function of the batch alone: the train
-    step runs it under torch.no_grad(), outside the loss closure."""
+    step runs it under torch.no_grad(), outside the loss closure. The
+    normals only where the signed search reads them (None elsewhere)."""
+    cached = "gt_o2h" in batch and "gt_h2o" in batch  # precomputed per sample
     verts_gt, joints_gt, normals_gt = batch_recover_mano(
-        mano_stack, batch["pose_repr"], batch["shape"], batch["hand_side"]
+        mano_stack, batch["pose_repr"], batch["shape"], batch["hand_side"], normals=with_chamfer and not cached
     )
     out = {"verts_gt": verts_gt, "joints_gt": joints_gt, "normals_gt": normals_gt}
     if with_chamfer:
-        if "gt_o2h" in batch and "gt_h2o" in batch:  # precomputed per sample
+        if cached:
             out["o2h_g"] = batch["gt_o2h"].to(torch.float32)
             out["h2o_g"] = batch["gt_h2o"].to(torch.float32)
         else:
@@ -214,7 +216,7 @@ def interaction_segment_extra_loss(
             gt_geom = extra_loss_gt_geometry(mano_stack, batch, with_chamfer=need_chamfer)
     verts_gt, joints_gt = gt_geom["verts_gt"], gt_geom["joints_gt"]
     verts_pred, joints_pred, normals_pred = batch_recover_mano(
-        mano_stack, model_output, batch["shape"], batch["hand_side"]
+        mano_stack, model_output, batch["shape"], batch["hand_side"], normals=need_chamfer
     )
 
     m = mask[:, :, None]

@@ -119,23 +119,21 @@ def batch_recover_mano(
     pose_repr: torch.Tensor,  # [bs, L, 99]
     shape: torch.Tensor,  # [bs, L, 10]
     hand_side: torch.Tensor,  # [bs] int (0 = rh, 1 = lh)
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """-> (verts [bs, L, 778, 3], joints [bs, L, 21, 3], normals [bs, L, 778, 3]).
+    *,
+    normals: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    """-> (verts [bs, L, 778, 3], joints [bs, L, 21, 3], normals [bs, L, 778, 3]
+    with `normals`, else None).
 
-    Both sides run on every sample and the sample's side is selected, as the
-    JAX package does for the normals (static per-side faces)."""
+    Each sample runs on its own side only: `hand_side` gathers the side's
+    template arrays and faces on the device, so nothing is read back."""
     with P.span("mano.recover", device=True):
-        rh = (hand_side == 0)[:, None, None, None]
-        per_side = [M.recover_mano_from_pose_repr(mano_stack.side(s), pose_repr, shape) for s in range(2)]
-        verts = torch.where(rh, per_side[0][0], per_side[1][0])
-        joints = torch.where(rh, per_side[0][1], per_side[1][1])
-        with P.span("mano.normals", device=True):
-            normals = torch.where(
-                rh,
-                G.vertex_normals(verts, mano_stack.faces[0]),
-                G.vertex_normals(verts, mano_stack.faces[1]),
-            )
-    return verts, joints, normals
+        verts, joints = M.recover_mano_from_pose_repr(mano_stack, pose_repr, shape, side=hand_side)
+        vn = None
+        if normals:
+            with P.span("mano.normals", device=True):
+                vn = G.vertex_normals(verts, mano_stack.faces_t[hand_side][:, None])
+    return verts, joints, vn
 
 
 def _canonical_frame_operands(hand_verts, obj_traj, obj_points):
@@ -215,16 +213,17 @@ def target_geometry(
     backend: str = "auto",
     frame_mask: torch.Tensor | None = None,
     chunk: int = 2048,
+    normals: bool = False,
 ) -> dict[str, torch.Tensor]:
     """Geometry of the GT target, a function of the batch alone, computed
     without autograd (the JAX package's stop_gradient). When the batch
     carries a precomputed `target_h2o` (data/target_cache.TargetH2OCache)
     the chamfer pass is skipped and only MANO runs. `frame_mask` is the
     loss-side cull hint: culled frames come out BIG, and the loss zeroes
-    them."""
+    them. `target_hand_normals` only with `normals` (no loss reads it)."""
     with torch.no_grad(), P.span("r.target_geometry", device=True):
         t_verts, t_joints, t_normals = batch_recover_mano(
-            mano_stack, batch["pose_repr"], batch["shape"], batch["hand_side"]
+            mano_stack, batch["pose_repr"], batch["shape"], batch["hand_side"], normals=normals
         )
         if "target_h2o" in batch:
             t_h2o = batch["target_h2o"]
@@ -233,12 +232,10 @@ def target_geometry(
                 t_verts, batch["obj_traj"], batch["obj_points"], batch["obj_mask"],
                 x_perm=mano_stack.template_perm, frame_mask=frame_mask, backend=backend, chunk=chunk,
             )
-    return {
-        "target_hand_verts": t_verts,
-        "target_hand_joints": t_joints,
-        "target_hand_normals": t_normals,
-        "target_h2o_dist": t_h2o,
-    }
+    res = {"target_hand_verts": t_verts, "target_hand_joints": t_joints, "target_h2o_dist": t_h2o}
+    if normals:
+        res["target_hand_normals"] = t_normals
+    return res
 
 
 def sample_geometry(
@@ -248,8 +245,10 @@ def sample_geometry(
     frame_mask: torch.Tensor | None = None,
     backend: str = "auto",
     chunk: int = 2048,
+    normals: bool = False,
 ) -> dict[str, torch.Tensor]:
-    """MANO recovery and h2o of `sample_pose_repr` (the network input).
+    """MANO recovery and h2o of `sample_pose_repr` (the network input);
+    `sample_hand_normals` only with `normals`.
 
     With `frame_mask` the h2o search skips mask-padded frames and gives them
     the reference's closed form instead: a zero-padded frame collapses every
@@ -257,7 +256,7 @@ def sample_geometry(
     L-1. Correct only under the zero-padding contract of data/collate.py."""
     with P.span("r.sample_geometry", device=True):
         s_verts, s_joints, s_normals = batch_recover_mano(
-            mano_stack, batch["sample_pose_repr"], batch["shape"], batch["hand_side"]
+            mano_stack, batch["sample_pose_repr"], batch["shape"], batch["hand_side"], normals=normals
         )
         s_h2o = multi_object_h2o_dist(
             s_verts, batch["obj_traj"], batch["obj_points"], batch["obj_mask"],
@@ -266,12 +265,10 @@ def sample_geometry(
         if frame_mask is not None:
             pad_h2o = torch.linalg.vector_norm(s_verts[:, -1:], dim=-1)  # [bs, 1, 778]
             s_h2o = torch.where((frame_mask > 0)[:, :, None], s_h2o, pad_h2o)
-    return {
-        "sample_hand_verts": s_verts,
-        "sample_hand_joints": s_joints,
-        "sample_hand_normals": s_normals,
-        "sample_h2o_dist": s_h2o,
-    }
+    res = {"sample_hand_verts": s_verts, "sample_hand_joints": s_joints, "sample_h2o_dist": s_h2o}
+    if normals:
+        res["sample_hand_normals"] = s_normals
+    return res
 
 
 def refine_forward(
@@ -284,6 +281,7 @@ def refine_forward(
     backend: str = "auto",
     loss_frame_mask: torch.Tensor | None = None,
     chunk: int = 2048,
+    normals: bool = False,
 ) -> dict[str, torch.Tensor]:
     """Sample geometry, the network's refinement, the refined geometry and
     (with_target) the GT target's geometry, with the JAX package's result
@@ -294,15 +292,17 @@ def refine_forward(
     `loss_frame_mask` marks mask-padded frames: their refine and target h2o
     come out BIG on the cull route (the loss zeroes them; the serving path
     never reads them) and their sample h2o takes sample_geometry's closed
-    form."""
+    form. The `*_hand_normals` keys only with `normals`: neither R's loss
+    nor serving reads them."""
     cond = {k: batch[k] for k in ("hand_side", "shape", "obj_embedding", "obj_traj", "obj_mask")}
     if sample_geom is None:
-        sample_geom = sample_geometry(mano_stack, batch, frame_mask=loss_frame_mask, backend=backend, chunk=chunk)
+        sample_geom = sample_geometry(mano_stack, batch, frame_mask=loss_frame_mask, backend=backend, chunk=chunk,
+                                      normals=normals)
     with P.span("r.net", device=True):
         output = net(batch["sample_pose_repr"], sample_geom["sample_h2o_dist"], cond)
     with P.span("r.refined_geometry", device=True):
         r_verts, r_joints, r_normals = batch_recover_mano(
-            mano_stack, output, batch["shape"], batch["hand_side"]
+            mano_stack, output, batch["shape"], batch["hand_side"], normals=normals
         )
         r_h2o = multi_object_h2o_dist(
             r_verts, batch["obj_traj"], batch["obj_points"], batch["obj_mask"],
@@ -312,10 +312,12 @@ def refine_forward(
         "refine_pose_repr": output,
         "refine_hand_verts": r_verts,
         "refine_hand_joints": r_joints,
-        "refine_hand_normals": r_normals,
         "refine_h2o_dist": r_h2o,
         **sample_geom,
     }
+    if normals:
+        res["refine_hand_normals"] = r_normals
     if with_target:
-        res.update(target_geometry(mano_stack, batch, backend=backend, frame_mask=loss_frame_mask, chunk=chunk))
+        res.update(target_geometry(mano_stack, batch, backend=backend, frame_mask=loss_frame_mask, chunk=chunk,
+                                   normals=normals))
     return res

@@ -243,11 +243,12 @@ def _heightfield(n=55, seed=9):
 
 
 def test_vertex_normals_scatter_route_matches_jax():
-    """V*F above 8e6 (3025 x 5832) takes the scatter route on both sides,
-    here for a batch of two meshes under autograd; the dense route on the
-    same mesh with a smaller face list agrees with the scatter route."""
+    """The port's one route (corner gathers, a scatter-add) against both of
+    the JAX package's: its scatter route (V*F of 3025 x 5832 above its
+    limit), for a batch of two meshes under autograd, and its dense-operator route on a
+    sub-mesh under the limit."""
     verts, faces = _heightfield()
-    assert verts.shape[0] * faces.shape[0] > TG._VN_DENSE_MAX
+    assert verts.shape[0] * faces.shape[0] > JG._VN_DENSE_MAX
     vb = np.stack([verts, verts[:, [1, 0, 2]] * 1.3])
     want = np.asarray(JG.vertex_normals(jnp.asarray(vb), faces))
     tv = _t(vb, True)
@@ -255,18 +256,13 @@ def test_vertex_normals_scatter_route_matches_jax():
     np.testing.assert_allclose(got.detach().numpy(), want, rtol=0, atol=1e-5)
     got.sum().backward()
     assert torch.isfinite(tv.grad).all()
-    # the dense route (V*F under the limit) on a sub-mesh: the same normals
+    # JAX's dense route (V*F under its limit) on a sub-mesh: the same normals
     sub = faces[:2000]
     used = np.unique(sub)
     remap = np.full(verts.shape[0], -1)
     remap[used] = np.arange(used.size)
     small_v, small_f = verts[used], remap[sub].astype(np.int32)
-    assert small_v.shape[0] * small_f.shape[0] <= TG._VN_DENSE_MAX
-    dense = TG.vertex_normals(_t(small_v), small_f).numpy()
-    monkey = TG._VN_DENSE_MAX
-    try:
-        TG._VN_DENSE_MAX = 0
-        scatter = TG.vertex_normals(_t(small_v), small_f).numpy()
-    finally:
-        TG._VN_DENSE_MAX = monkey
+    assert small_v.shape[0] * small_f.shape[0] <= JG._VN_DENSE_MAX
+    dense = np.asarray(JG.vertex_normals(jnp.asarray(small_v), small_f))
+    scatter = TG.vertex_normals(_t(small_v), small_f).numpy()
     np.testing.assert_allclose(scatter, dense, rtol=0, atol=1e-5)

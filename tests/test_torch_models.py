@@ -299,7 +299,7 @@ def test_batch_recover_mano_and_normals_match_jax():
     pr[0, -2:] = 0.0  # zero-padded frames
     shape = rng.normal(size=(2, 6, 10)).astype(np.float32)
     side = np.array([0, 1], np.int32)
-    got = R.batch_recover_mano(pst, _t(pr), _t(shape), _t(side).long())
+    got = R.batch_recover_mano(pst, _t(pr), _t(shape), _t(side).long(), normals=True)
     want = JR.batch_recover_mano(jst, pr, shape, side)
     for a, b, tol in zip(got, want, (ATOL_MANO, ATOL_MANO, ATOL_NORMAL)):
         np.testing.assert_allclose(_np(a), _np(b), atol=tol)
@@ -355,7 +355,7 @@ def test_sample_geometry_frame_mask_matches_jax():
     jst, pst = _mano_pair()
     jb, pb = _geom_batch(4096, seed=3)
     want = JR.sample_geometry(jst, jb, frame_mask=jb["mask"])
-    got = R.sample_geometry(pst, pb, frame_mask=pb["mask"])
+    got = R.sample_geometry(pst, pb, frame_mask=pb["mask"], normals=True)
     for k, tol in (("sample_hand_verts", ATOL_MANO), ("sample_hand_joints", ATOL_MANO),
                    ("sample_hand_normals", ATOL_NORMAL)):
         np.testing.assert_allclose(_np(got[k]), _np(want[k]), atol=tol, err_msg=k)

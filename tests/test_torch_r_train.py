@@ -132,7 +132,7 @@ def test_target_geometry_matches_jax(with_cached):
         jb["target_h2o"], pb["target_h2o"] = jnp.asarray(h), _t(h)
     want = JR.target_geometry(jst, jb, chunk=64)
     pb["pose_repr"].requires_grad_(True)
-    got = R.target_geometry(pst, pb)
+    got = R.target_geometry(pst, pb, normals=True)
     assert not any(v.requires_grad for v in got.values())
     for k, tol in (("target_hand_verts", 2e-6), ("target_hand_joints", 2e-6), ("target_hand_normals", 1e-4)):
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), atol=tol, err_msg=k)
@@ -252,7 +252,7 @@ def test_refine_forward_eval_matches_jax():
     net = R.SegmentRefineNet(R.RefineConfig(**cfg))
     net.load_state_dict(from_jax.r_state_dict_from_flax(jparams))
     with torch.no_grad():
-        got = train_r.refine_forward_eval(net, pst, {k: _t(v) for k, v in b.items()})
+        got = train_r.refine_forward_eval(net, pst, {k: _t(v) for k, v in b.items()}, normals=True)
     assert not net.training
     assert set(got) == set(want)
     valid = b["mask"] > 0

@@ -225,8 +225,8 @@ def test_g_train_step_matches_jax_composed():
 
 
 def test_vertex_normals_operators_cached_in_inference_mode_serve_autograd():
-    """Serving builds the cached normal operators under inference_mode; a
-    training step that reuses them must still be able to backpropagate."""
+    """Normals computed under inference_mode (serving) leave nothing that
+    keeps a later training step on the same faces from backpropagating."""
     from oakink2_tamf_tpu_torch.core import geometry as G
 
     faces = np.array([[0, 1, 2], [0, 2, 3], [1, 2, 4]], np.int32) + 100  # a key no other test uses
